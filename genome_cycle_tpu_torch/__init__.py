@@ -1,0 +1,44 @@
+"""genome_cycle_tpu_torch — PyTorch/CUDA port of the whole-genome cell-cycle
+Brownian-dynamics framework in :mod:`genome_cycle_tpu`.
+
+The JAX package beside this one is the reference; this package imports
+``torch``, never ``jax`` and nothing of the JAX package.  Ported so far: the
+interphase main path (prepare -> transition interphase -> relaxation + G1).
+
+Layout (same module and function names as the JAX package):
+
+- :mod:`genome_cycle_tpu_torch.config`    — JSON config (reference-compatible schema)
+- :mod:`genome_cycle_tpu_torch.topology`  — chains.tsv parsing + topology compiler
+- :mod:`genome_cycle_tpu_torch.store`     — HDF5 trajectory store + in-memory twin
+- :mod:`genome_cycle_tpu_torch.ops`       — potentials, bonded and wall forces,
+  BD integrator, the A/B pair-force CUDA kernel and its plain version,
+  contact search and window merge
+- :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, interphase
+- :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays
+- :mod:`genome_cycle_tpu_torch.utils`     — splines, logging
+"""
+
+__version__ = "0.1.0"
+
+
+def default_device():
+    """The device every entry point runs on unless the caller names one:
+    the first CUDA card.  Raises when there is none — a run never carries
+    on silently on the CPU."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' (CLI: --device cpu) "
+            "to run on the CPU explicitly"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None):
+    """``None`` -> :func:`default_device`; anything else -> ``torch.device``."""
+    import torch
+
+    if device is None:
+        return default_device()
+    return torch.device(device)

@@ -1,0 +1,280 @@
+"""The A/B copolymer pair force: cell layout, CUDA kernel wrapper, plain version.
+
+Counterpart of the JAX package's ``ops/pallas_kernels.py``.  The function is
+the reference's per-pair mixed softcore
+(stage_interphase/simulation_driver_forcefield.cpp:30-52):
+F_i = sum_j c(r2) (x_i - x_j) with c = a_mix * c_softcore<2,3> + b_mix *
+c_softcore<8,3>, a_mix = (a_i + a_j)/2, b_mix = (b_i + b_j)/2, diameters
+scaled by the core scale, summed over the 27 neighbour cells of i.
+
+Three parts:
+
+- :func:`build_cell_layout` — plain torch, runs on either device: beads sorted
+  by flat cell id, a cell being the range ``[cell_start[c], cell_start[c+1])``
+  of that order.  No per-cell capacity, so nothing overflows.
+- :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
+  hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
+  takes the plain version.  It never falls back on the card.
+- :func:`ab_pair_forces_reference` — the plain version, walking the same
+  layout with ragged range expansion; the CPU tests and the on-card comparison
+  use it.  ``ops.neighbor.pairwise_forces_dense`` is the layout-free oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from . import _build
+
+
+class CellLayout(NamedTuple):
+    """Beads in cell-sorted order over a cubic grid (z runs fastest)."""
+
+    cell: float                # cell edge; the grid starts at -bound on every axis
+    dims: int                  # cells per axis
+    order: torch.Tensor        # (N,) int64: sorted index -> original bead id
+    cell_id: torch.Tensor      # (N,) int32 flat cell id, ascending
+    cell_start: torch.Tensor   # (dims^3 + 1,) int32 range starts
+    xyz: torch.Tensor          # (N, 4) f32 x, y, z, 0 in sorted order
+    ab: torch.Tensor           # (N, 2) f32 a, b factors in sorted order
+
+    @property
+    def n(self) -> int:
+        return self.order.shape[0]
+
+    @property
+    def num_cells(self) -> int:
+        return self.dims ** 3
+
+
+def grid_dims(bound: float, cell: float) -> int:
+    """Cells per axis of the cubic grid over [-bound, bound]."""
+    return max(int(math.ceil(2.0 * bound / cell)), 1)
+
+
+def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayout:
+    """Sort beads into the cells of the cubic grid over [-bound, bound]^3.
+
+    Beads outside the grid are clipped into the edge cells; clipping is
+    monotone per axis, so two beads closer than one cell still land in the
+    same or in neighbouring cells and keep interacting.  No host
+    synchronisation.
+    """
+    dims = grid_dims(bound, cell)
+    if dims ** 3 >= 2 ** 31 - 1:
+        raise ValueError(f"grid of {dims}^3 cells does not fit 32-bit cell ids")
+    lower = -float(bound)
+    x = positions.to(torch.float32)
+    coords = torch.floor((x - lower) / cell).to(torch.int64).clamp_(0, dims - 1)
+    flat = (coords[:, 0] * dims + coords[:, 1]) * dims + coords[:, 2]
+    sorted_flat, order = torch.sort(flat, stable=True)
+    edges = torch.arange(dims ** 3 + 1, device=x.device, dtype=torch.int64)
+    cell_start = torch.searchsorted(sorted_flat, edges).to(torch.int32)
+    xyz = torch.zeros((x.shape[0], 4), dtype=torch.float32, device=x.device)
+    xyz[:, :3] = x[order]
+    ab = torch.stack([af[order], bf[order]], dim=1).to(torch.float32).contiguous()
+    return CellLayout(
+        cell=float(cell), dims=dims, order=order,
+        cell_id=sorted_flat.to(torch.int32), cell_start=cell_start,
+        xyz=xyz, ab=ab,
+    )
+
+
+def stencil_ranges(layout: CellLayout, half: bool = False):
+    """The 27-cell stencil of every sorted bead as contiguous index ranges.
+
+    The three z-neighbours of a cell column are contiguous in the flat id, so
+    the stencil is 9 ranges.  Yields ``(start, count)`` int64 tensors of
+    length N, the count 0 where a column lies outside the grid.  With
+    ``half`` only the ranges whose cells have a flat id not below the bead's
+    own are yielded (5 ranges): every unordered pair then appears from its
+    lower sorted index only, given the filter ``j > i`` on the own column.
+    """
+    d = layout.dims
+    c = layout.cell_id.to(torch.int64)
+    cz = c % d
+    cy = (c // d) % d
+    cx = c // (d * d)
+    starts = layout.cell_start.to(torch.int64)
+    z_hi = torch.clamp(cz + 1, max=d - 1)
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            if half and (ox, oy) < (0, 0):
+                continue
+            z_lo = cz if half and (ox, oy) == (0, 0) else torch.clamp(cz - 1, min=0)
+            x, y = cx + ox, cy + oy
+            inside = (x >= 0) & (x < d) & (y >= 0) & (y < d)
+            column = (x.clamp(0, d - 1) * d + y.clamp(0, d - 1)) * d
+            start = starts[column + z_lo]
+            count = starts[column + z_hi + 1] - start
+            yield start, torch.where(inside, count, torch.zeros_like(count))
+
+
+def expand_ranges(start, count, max_pairs: int = 1 << 23):
+    """Ragged expansion of per-bead ranges into candidate pairs.
+
+    Yields ``(i, j)`` int64 index tensors, bead blocks at a time so that one
+    piece holds about ``max_pairs`` candidates at most.  Sizes its outputs on
+    the host (one synchronisation per call).
+    """
+    n = start.shape[0]
+    ends = torch.cumsum(count, 0)
+    total = int(ends[-1]) if n else 0
+    if total == 0:
+        return
+    pieces = max(1, -(-total // max_pairs))
+    # Block edges at equal shares of the candidate count.
+    targets = torch.arange(1, pieces, device=start.device) * (total // pieces)
+    cuts = [0, *torch.searchsorted(ends, targets, right=True).tolist(), n]
+    rows_all = torch.arange(n, device=start.device)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        if hi <= lo:
+            continue
+        cnt = count[lo:hi]
+        size = int(ends[hi - 1] - (ends[lo - 1] if lo else 0))
+        if size == 0:
+            continue
+        i = torch.repeat_interleave(rows_all[lo:hi], cnt, output_size=size)
+        first = torch.cumsum(cnt, 0) - cnt          # offset of each bead's run
+        within = torch.arange(size, device=start.device) - first[i - lo]
+        yield i, start[i] + within
+
+
+def _check_params(layout: CellLayout, params: Sequence[float]):
+    e_a, inv_da2, e_b, inv_db2 = (float(v) for v in params)
+    reach = 1.0 / math.sqrt(min(inv_da2, inv_db2))
+    if reach > layout.cell * (1.0 + 1e-6):
+        raise ValueError(
+            f"largest core diameter {reach:g} exceeds the cell edge "
+            f"{layout.cell:g}: the one-cell stencil would lose pairs"
+        )
+    return e_a, inv_da2, e_b, inv_db2
+
+
+def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = False):
+    """Plain torch version of :func:`ab_pair_forces` over the same layout.
+
+    ``params`` = [e_a, 1/d_a^2, e_b, 1/d_b^2] (diameters pre-scaled).  Returns
+    (forces (N, 3) in original bead order, energy scalar tensor).
+    """
+    e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
+    pos = layout.xyz[:, :3]
+    a, b = layout.ab[:, 0], layout.ab[:, 1]
+    forces_sorted = torch.zeros_like(pos)
+    energy = pos.new_zeros(())
+    for start, count in stencil_ranges(layout):
+        for i, j in expand_ranges(start, count):
+            dx = pos[i] - pos[j]
+            r2 = torch.sum(dx * dx, dim=-1)
+            a_mix = 0.5 * (a[i] + a[j])
+            b_mix = 0.5 * (b[i] + b[j])
+            core_a = torch.clamp(1.0 - r2 * inv_da2, min=0.0)
+            s_b = r2 * inv_db2
+            core_b = torch.clamp(1.0 - s_b ** 4, min=0.0)
+            coeff = (
+                a_mix * (6.0 * e_a * inv_da2) * core_a ** 2
+                + b_mix * (24.0 * e_b * inv_db2) * s_b ** 3 * core_b ** 2
+            )
+            other = (i != j).to(pos.dtype)
+            forces_sorted.index_add_(0, i, (coeff * other)[:, None] * dx)
+            if with_energy:
+                u = a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3
+                energy = energy + 0.5 * torch.sum(u * other)
+    forces = torch.empty_like(forces_sorted)
+    forces[layout.order] = forces_sorted
+    return forces, energy
+
+
+def _library():
+    lib = _build.load_library("ab_pair_forces")
+    fn = lib.ab_pair_forces_launch
+    if not fn.argtypes:
+        # Every pointer and the stream as c_void_p: without argtypes ctypes
+        # passes a Python int as a 32-bit int and cuts the pointer.
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+            + [ctypes.c_void_p] * 3
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensor(name, tensor, dtype, shape, device):
+    if tensor.device != device:
+        raise ValueError(f"{name} lies on {tensor.device}, expected {device}")
+    if tensor.dtype != dtype:
+        raise TypeError(f"{name} has dtype {tensor.dtype}, expected {dtype}")
+    if tuple(tensor.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(tensor.shape)}, expected {tuple(shape)}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
+    """A/B pair force (and optionally its energy) over a cell layout.
+
+    ``params`` = [e_a, 1/d_a^2, e_b, 1/d_b^2] as Python floats, passed to the
+    kernel by value.  Returns (forces (N, 3) in original bead order, energy
+    scalar tensor; zero unless ``with_energy``).
+
+    A CUDA layout goes to the kernel of ``csrc/ab_pair_forces.cu``, launched
+    on the current stream without synchronising; anything that keeps it from
+    launching raises.  A CPU layout goes to the plain version.
+    """
+    if layout.xyz.device.type != "cuda":
+        return ab_pair_forces_reference(layout, params, with_energy)
+
+    e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
+    device = layout.xyz.device
+    n = layout.n
+    cells = layout.num_cells
+    if cells >= 2 ** 31 - 1 or n >= 2 ** 31 - 1:
+        raise ValueError("bead or cell count does not fit 32-bit indices")
+    _check_tensor("xyz", layout.xyz, torch.float32, (n, 4), device)
+    _check_tensor("ab", layout.ab, torch.float32, (n, 2), device)
+    _check_tensor("cell_id", layout.cell_id, torch.int32, (n,), device)
+    _check_tensor("cell_start", layout.cell_start, torch.int32, (cells + 1,), device)
+    _check_tensor("order", layout.order, torch.int64, (n,), device)
+
+    launch = _library()
+    forces_sorted = torch.empty((n, 3), dtype=torch.float32, device=device)
+    per_bead = (
+        torch.empty((n,), dtype=torch.float32, device=device) if with_energy else None
+    )
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = launch(
+            layout.xyz.data_ptr(), layout.ab.data_ptr(),
+            layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
+            n, layout.dims, layout.dims, layout.dims,
+            e_a, inv_da2, e_b, inv_db2,
+            forces_sorted.data_ptr(),
+            per_bead.data_ptr() if with_energy else None,
+            stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"ab_pair_forces kernel launch failed: CUDA error {status}")
+    ab_pair_forces.launches += 1
+
+    forces = torch.empty_like(forces_sorted)
+    forces[layout.order] = forces_sorted
+    energy = per_bead.sum() if with_energy else forces.new_zeros(())
+    return forces, energy
+
+
+# Kernel launches made by this process; a run reads it to show that its path
+# went through the kernel.
+ab_pair_forces.launches = 0
+
+
+def candidate_pairs(layout: CellLayout) -> int:
+    """Ordered candidate pairs (i, j != i) the kernel walks for this layout:
+    the work its float32 bound is computed from."""
+    total = 0
+    for _, count in stencil_ranges(layout):
+        total += int(count.sum())
+    return total - layout.n

@@ -1,0 +1,48 @@
+"""The port imports torch, never jax and nothing of the JAX package."""
+
+import subprocess
+import sys
+
+import pytest
+
+MODULES = [
+    "genome_cycle_tpu_torch",
+    "genome_cycle_tpu_torch.cli",
+    "genome_cycle_tpu_torch.convert",
+    "genome_cycle_tpu_torch.models.interphase",
+    "genome_cycle_tpu_torch.ops.pair_kernels",
+]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_pulls_in_no_jax(module):
+    code = (
+        f"import sys, {module}\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'genome_cycle_tpu'"
+        " or m.startswith('genome_cycle_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'h5py' not in sys.modules, 'h5py imported at module import'\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_refuses_unported_commands_and_default_device(tmp_path):
+    code = (
+        "import sys\n"
+        "from genome_cycle_tpu_torch import cli, default_device\n"
+        "assert cli.main(['anatelophase', 'x.h5']) != 0\n"
+        "assert cli.main(['transition', 'prometaphase', 'x.h5']) != 0\n"
+        "import torch\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        default_device()\n"
+        "    except RuntimeError:\n"
+        "        pass\n"
+        "    else:\n"
+        "        raise SystemExit('default_device() did not raise without a card')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,236 @@
+"""The A/B pair force of the port against the JAX package's Pallas kernel.
+
+On the CPU the port's wrapper takes its plain version, which walks the same
+cell layout the CUDA kernel walks; the JAX kernel runs in interpret mode.
+Inputs are those of tests/test_pallas_kernel.py, made with numpy from a seed.
+Tolerance: max|dF| <= 1e-4 * max(|F|, 1), that test's own limit (float32 sums
+in another order); energies 1e-5 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from genome_cycle_tpu.ops import potentials as jpot
+from genome_cycle_tpu.ops.dense_grid import DenseGrid
+from genome_cycle_tpu.ops.pallas_kernels import (
+    ab_pair_forces_pallas,
+    build_padded_slab,
+    forces_to_beads,
+)
+from genome_cycle_tpu_torch.ops import pair_kernels as pk
+from genome_cycle_tpu_torch.ops import potentials as tpot
+from genome_cycle_tpu_torch.ops.neighbor import pairwise_forces_dense
+
+# The suite runs in several worker processes at once: one thread each keeps
+# torch from oversubscribing the cores (sizes here are tiny).
+torch.set_num_threads(1)
+
+
+def _beads(n=300, seed=1234):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    af = rng.uniform(0, 1, n).astype(np.float32)
+    return x, af, (1.0 - af).astype(np.float32)
+
+
+def _kparams(core_scale):
+    a_d, b_d = 0.3 * core_scale, 0.24 * core_scale
+    pp = dict(a_energy=2.5, a_diameter=a_d, b_energy=2.5, b_diameter=b_d)
+    return (2.5, 1 / (a_d * a_d), 2.5, 1 / (b_d * b_d)), pp
+
+
+def _dense(x, af, bf, pp, with_energy=True):
+    af, bf = torch.as_tensor(af), torch.as_tensor(bf)
+
+    def coeff(r2, i, j):
+        return tpot.ab_pair_force_coeff(r2, 0.5 * (af[i] + af[j]), 0.5 * (bf[i] + bf[j]), pp)
+
+    def energy(r2, i, j):
+        return tpot.ab_pair_energy(r2, 0.5 * (af[i] + af[j]), 0.5 * (bf[i] + bf[j]), pp)
+
+    return pairwise_forces_dense(torch.as_tensor(x), coeff, energy if with_energy else None)
+
+
+def _layout(x, af, bf, bound=1.2, cell=0.3):
+    return pk.build_cell_layout(
+        torch.as_tensor(x), torch.as_tensor(af), torch.as_tensor(bf), bound, cell
+    )
+
+
+def _assert_close(got, want):
+    want = np.asarray(want)
+    err = np.abs(np.asarray(got) - want).max()
+    assert err <= 1e-4 * max(np.abs(want).max(), 1.0)
+
+
+@pytest.mark.parametrize("core_scale", [0.5, 1.0])
+def test_plain_version_matches_pallas_interpret(core_scale):
+    x, af, bf = _beads()
+    grid = DenseGrid.cubic(bound=1.2, cell_size=0.3, capacity=16)
+    slab, ids, overflow, _ = build_padded_slab(
+        grid, jnp.asarray(x), jnp.asarray(af), jnp.asarray(bf)
+    )
+    assert int(overflow) == 0
+    kparams, _ = _kparams(core_scale)
+    planes = ab_pair_forces_pallas(
+        slab, jnp.asarray(kparams, jnp.float32), grid.dims, grid.capacity,
+        jb=8, interpret=True,
+    )
+    f_jax = np.asarray(forces_to_beads(planes, ids, len(x)))
+    assert np.abs(f_jax).max() > 1.0
+
+    layout = _layout(x, af, bf)
+    f_ref, _ = pk.ab_pair_forces_reference(layout, kparams)
+    f_wrap, e_wrap = pk.ab_pair_forces(layout, kparams)     # CPU -> plain version
+    _assert_close(f_ref, f_jax)
+    assert torch.equal(f_ref, f_wrap) and float(e_wrap) == 0.0
+
+
+@pytest.mark.parametrize("core_scale", [0.5, 1.0])
+def test_plain_version_matches_dense_oracle_and_energy(core_scale):
+    x, af, bf = _beads()
+    kparams, pp = _kparams(core_scale)
+    f, e = pk.ab_pair_forces(_layout(x, af, bf), kparams, with_energy=True)
+    f_dense, e_dense = _dense(x, af, bf, pp)
+    _assert_close(f, f_dense)
+    assert float(e) == pytest.approx(float(e_dense), rel=1e-5)
+    # The energy is the JAX package's ab_pair_energy summed over pairs i < j.
+    i, j = np.triu_indices(len(x), 1)
+    r2 = ((x[i] - x[j]) ** 2).sum(axis=1)
+    u = jpot.ab_pair_energy(
+        jnp.asarray(r2), jnp.asarray(0.5 * (af[i] + af[j])),
+        jnp.asarray(0.5 * (bf[i] + bf[j])), pp,
+    )
+    assert float(e) == pytest.approx(float(np.asarray(u, np.float64).sum()), rel=1e-5)
+
+
+def test_dense_oracle_matches_jax_dense():
+    from genome_cycle_tpu.ops.neighbor import pairwise_forces_dense as jdense
+
+    x, af, bf = _beads(150, seed=5)
+    _, pp = _kparams(1.0)
+    ja, jb = jnp.asarray(af), jnp.asarray(bf)
+    fj, ej = jdense(
+        jnp.asarray(x),
+        lambda r2, i, j: jpot.ab_pair_force_coeff(r2, 0.5 * (ja[i] + ja[j]), 0.5 * (jb[i] + jb[j]), pp),
+        lambda r2, i, j: jpot.ab_pair_energy(r2, 0.5 * (ja[i] + ja[j]), 0.5 * (jb[i] + jb[j]), pp),
+    )
+    ft, et = _dense(x, af, bf, pp)
+    _assert_close(ft, fj)
+    assert float(et) == pytest.approx(float(ej), rel=1e-5)
+    # targets: only the listed beads interact, the others get no force.
+    targets = np.asarray([3, 17, 40, 41, 99])
+    fj, _ = jdense(
+        jnp.asarray(x),
+        lambda r2, i, j: jpot.softwell_force_coeff(r2, 0.3, 0.2, 6),
+        targets=jnp.asarray(targets),
+    )
+    ft, _ = pairwise_forces_dense(
+        torch.as_tensor(x), lambda r2, i, j: tpot.softwell_force_coeff(r2, 0.3, 0.2, 6),
+        targets=torch.as_tensor(targets),
+    )
+    _assert_close(ft, fj)
+    rest = np.setdiff1d(np.arange(len(x)), targets)
+    assert not ft[rest].any()
+
+
+def test_dense_oracle_row_blocks(monkeypatch):
+    """Row-blocked evaluation gives what one block gives."""
+    from genome_cycle_tpu_torch.ops import neighbor
+
+    x, af, bf = _beads(130, seed=6)
+    _, pp = _kparams(1.0)
+    f_one, e_one = _dense(x, af, bf, pp)
+    monkeypatch.setattr(neighbor, "_BLOCK_ELEMENTS", 130 * 7)
+    f_blk, e_blk = _dense(x, af, bf, pp)
+    _assert_close(f_blk, f_one)
+    assert float(e_blk) == pytest.approx(float(e_one), rel=1e-6)
+
+
+def test_boundary_cells():
+    """Beads in the corner cells: clipped ranges, no phantom forces."""
+    x = np.asarray(
+        [[-1.15, -1.15, -1.15], [1.15, 1.15, 1.15], [1.15, -1.15, 1.15],
+         [-1.1, -1.1, -1.1]], np.float32)
+    af, bf = np.ones(4, np.float32), np.zeros(4, np.float32)
+    kparams = (2.5, 1 / 0.09, 2.5, 1 / 0.0576)
+    pp = dict(a_energy=2.5, a_diameter=0.3, b_energy=2.5, b_diameter=0.24)
+    f, _ = pk.ab_pair_forces(_layout(x, af, bf), kparams)
+    f_dense, _ = _dense(x, af, bf, pp, with_energy=False)
+    np.testing.assert_allclose(f.numpy(), f_dense.numpy(), atol=1e-5)
+    assert f[0].abs().max() > 0
+    np.testing.assert_allclose(f[1].numpy(), 0.0, atol=1e-6)
+
+
+def test_out_of_grid_beads_still_interact():
+    """Beads beyond the grid are clipped into edge cells and keep their true
+    coordinates (as tests/test_block_pairs.py checks for the JAX engine)."""
+    x = np.asarray(
+        [[1.95, 0.0, 0.0], [2.15, 0.0, 0.0], [-2.4, 0.0, 0.0], [-2.5, 0.1, 0.0],
+         [5.0, 5.0, 5.0], [5.1, 5.0, 5.1]], np.float32)
+    af, bf = np.ones(6, np.float32), np.zeros(6, np.float32)
+    pp = dict(a_energy=2.0, a_diameter=0.4, b_energy=1.0, b_diameter=0.3)
+    kparams = (2.0, 1 / 0.16, 1.0, 1 / 0.09)
+    layout = _layout(x, af, bf, bound=2.0, cell=0.4)
+    f, e = pk.ab_pair_forces(layout, kparams, with_energy=True)
+    f_dense, e_dense = _dense(x, af, bf, pp)
+    np.testing.assert_allclose(f.numpy(), f_dense.numpy(), atol=1e-5)
+    assert float(e) == pytest.approx(float(e_dense), rel=1e-5)
+    assert f[4].abs().max() > 0 and f[2].abs().max() > 0
+
+
+@pytest.mark.parametrize("bound,cell", [(1.2, 0.3), (0.45, 0.3), (1.0, 0.37)])
+def test_cell_layout_against_numpy_bincount(bound, cell):
+    x, af, bf = _beads(500, seed=7)
+    layout = _layout(x, af, bf, bound, cell)
+    dims = max(int(np.ceil(2.0 * bound / cell)), 1)
+    assert layout.dims == dims == pk.grid_dims(bound, cell)
+    coords = np.clip(np.floor((x + np.float32(bound)) / np.float32(cell)).astype(np.int64), 0, dims - 1)
+    flat = (coords[:, 0] * dims + coords[:, 1]) * dims + coords[:, 2]
+    counts = np.bincount(flat, minlength=dims ** 3)
+    start = np.concatenate([[0], np.cumsum(counts)])
+    np.testing.assert_array_equal(layout.cell_start.numpy(), start)
+    assert layout.cell_start.dtype == torch.int32 and layout.cell_id.dtype == torch.int32
+    order = layout.order.numpy()
+    assert sorted(order.tolist()) == list(range(len(x)))        # a permutation
+    np.testing.assert_array_equal(layout.cell_id.numpy(), flat[order])
+    assert (np.diff(layout.cell_id.numpy()) >= 0).all()
+    np.testing.assert_array_equal(layout.xyz[:, :3].numpy(), x[order])
+    assert not layout.xyz[:, 3].any()
+    np.testing.assert_array_equal(layout.ab.numpy(), np.stack([af, bf], 1)[order])
+    assert layout.xyz.is_contiguous() and layout.ab.is_contiguous()
+
+
+def test_stencil_covers_each_pair_once():
+    x, af, bf = _beads(400, seed=8)
+    layout = _layout(x, af, bf)
+    seen = []
+    for start, count in pk.stencil_ranges(layout):
+        for i, j in pk.expand_ranges(start, count, max_pairs=1000):
+            seen.append(torch.stack([i, j], 1))
+    seen = torch.cat(seen)
+    assert len(torch.unique(seen, dim=0)) == len(seen)          # no pair twice
+    assert len(seen) - layout.n == pk.candidate_pairs(layout)
+    # Every pair closer than one cell is among the candidates.
+    pos = layout.xyz[:, :3]
+    d = torch.cdist(pos.double(), pos.double())
+    close = torch.nonzero(d < 0.3)
+    have = set(map(tuple, seen.tolist()))
+    assert all(tuple(p) in have for p in close.tolist())
+
+
+def test_wrapper_refuses_a_cell_smaller_than_the_cores():
+    x, af, bf = _beads(50, seed=9)
+    layout = _layout(x, af, bf, bound=1.2, cell=0.2)
+    kparams, _ = _kparams(1.0)                                   # d_a = 0.3 > 0.2
+    with pytest.raises(ValueError, match="cell edge"):
+        pk.ab_pair_forces(layout, kparams)
+
+
+def test_cpu_wrapper_counts_no_launch():
+    x, af, bf = _beads(50, seed=10)
+    before = pk.ab_pair_forces.launches
+    pk.ab_pair_forces(_layout(x, af, bf), _kparams(1.0)[0])
+    assert pk.ab_pair_forces.launches == before
