@@ -6,8 +6,8 @@ header, so ``nvcc`` compiles it in seconds into a shared library that
 (``tensor.data_ptr()``, ``torch.cuda.current_stream().cuda_stream``).
 
 The library goes into ``build/`` beside the package, under a name that
-carries a hash of the source, so an edited source is rebuilt and a built one
-is reused.  Nothing here runs when the module is imported.
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a built one is reused.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
+_library_paths: dict[str, pathlib.Path] = {}
 _build_logs: dict[str, str] = {}
 
 
@@ -69,18 +70,24 @@ def load_library(name: str) -> ctypes.CDLL:
             _build_logs[name] = log_path.read_text()
         else:
             scratch = out_dir / f"lib{name}-{digest}.{os.getpid()}.tmp.so"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(scratch), str(source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {source.name} (exit {proc.returncode}):\n{log}"
-                )
+            log = compile_source(source, scratch)
             log_path.write_text(log)
             os.replace(scratch, target)  # atomic: a concurrent build is harmless
             _build_logs[name] = log
+        _library_paths[name] = target
         _libraries[name] = ctypes.CDLL(str(target))
         return _libraries[name]
+
+
+def compile_source(source: pathlib.Path, target: pathlib.Path) -> str:
+    """Compile one CUDA source into a shared library with the package's
+    flags; returns what ``nvcc -Xptxas -v`` printed, raises if it failed."""
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(target), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source.name} (exit {proc.returncode}):\n{log}")
+    return log
 
 
 def build_log(name: str) -> str:
@@ -88,3 +95,9 @@ def build_log(name: str) -> str:
     spills, shared memory); builds the library if that has not happened."""
     load_library(name)
     return _build_logs[name]
+
+
+def library_path(name: str) -> pathlib.Path:
+    """The file :func:`load_library` loads for the source as it stands."""
+    load_library(name)
+    return _library_paths[name]

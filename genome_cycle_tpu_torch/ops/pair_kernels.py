@@ -14,7 +14,9 @@ Three parts:
   of that order.  No per-cell capacity, so nothing overflows.
 - :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
   hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
-  takes the plain version.  It never falls back on the card.
+  takes the plain version.  It never falls back on the card.  (The source
+  also holds the kernel's first version, reached only through
+  :func:`_ab_pair_forces_thread_per_bead`, as a yardstick for timing.)
 - :func:`ab_pair_forces_reference` — the plain version, walking the same
   layout with ragged range expansion; the CPU tests and the on-card comparison
   use it.  ``ops.neighbor.pairwise_forces_dense`` is the layout-free oracle.
@@ -155,6 +157,17 @@ def _check_params(layout: CellLayout, params: Sequence[float]):
     return e_a, inv_da2, e_b, inv_db2
 
 
+def in_reach(r2, inv_da2: float, inv_db2: float):
+    """Whether a pair at squared distance ``r2`` lies inside the larger core
+    diameter.  Beyond it both softcore terms are exactly zero: with the
+    smaller 1/d^2 the rounded quotient r2/d^2 is the smaller of the two, so
+    where it is not below 1 neither core ``1 - s`` is positive.  The CUDA
+    kernel skips pairs by this very test; its cores are fused multiply-adds,
+    so within one rounding of the diameter it can drop a core of about 1e-7
+    that it would otherwise have kept."""
+    return r2 * min(inv_da2, inv_db2) < 1.0
+
+
 def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = False):
     """Plain torch version of :func:`ab_pair_forces` over the same layout.
 
@@ -165,7 +178,7 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
     pos = layout.xyz[:, :3]
     a, b = layout.ab[:, 0], layout.ab[:, 1]
     forces_sorted = torch.zeros_like(pos)
-    energy = pos.new_zeros(())
+    per_bead = pos.new_zeros(pos.shape[0])      # as the kernel: a bead's half of each pair
     for start, count in stencil_ranges(layout):
         for i, j in expand_ranges(start, count):
             dx = pos[i] - pos[j]
@@ -183,27 +196,30 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
             forces_sorted.index_add_(0, i, (coeff * other)[:, None] * dx)
             if with_energy:
                 u = a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3
-                energy = energy + 0.5 * torch.sum(u * other)
+                per_bead.index_add_(0, i, 0.5 * u * other)
     forces = torch.empty_like(forces_sorted)
     forces[layout.order] = forces_sorted
-    return forces, energy
+    return forces, per_bead.sum()
 
 
-def _library():
+def _entry_points():
+    """The C launch functions of ``csrc/ab_pair_forces.cu``: the kernel the
+    package runs, and the first version kept as its yardstick."""
     lib = _build.load_library("ab_pair_forces")
-    fn = lib.ab_pair_forces_launch
-    if not fn.argtypes:
+    cells, thread_per_bead = (
+        lib.ab_pair_forces_launch, lib.ab_pair_forces_thread_per_bead_launch
+    )
+    if not cells.argtypes:
         # Every pointer and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit int and cuts the pointer.
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-            + [ctypes.c_void_p] * 3
-        )
-        fn.restype = ctypes.c_int
-    return fn
+        scalars = [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+        cells.argtypes = [ctypes.c_void_p] * 5 + scalars + [ctypes.c_void_p] * 3
+        thread_per_bead.argtypes = [ctypes.c_void_p] * 4 + scalars + [ctypes.c_void_p] * 3
+        cells.restype = thread_per_bead.restype = ctypes.c_int
+    return cells, thread_per_bead
 
 
-def _check_tensor(name, tensor, dtype, shape, device):
+def _check_tensor(name, tensor, dtype, shape, device, align):
     if tensor.device != device:
         raise ValueError(f"{name} lies on {tensor.device}, expected {device}")
     if tensor.dtype != dtype:
@@ -212,6 +228,55 @@ def _check_tensor(name, tensor, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(tensor.shape)}, expected {tuple(shape)}")
     if not tensor.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+    if tensor.data_ptr() % align:
+        raise ValueError(f"{name} is not aligned to {align} bytes")
+
+
+def _check_layout(layout: CellLayout):
+    """Raise on a layout the kernels do not take."""
+    device = layout.xyz.device
+    n = layout.n
+    cells = layout.num_cells
+    if cells >= 2 ** 31 - 1 or n >= 2 ** 31 - 2 ** 16:
+        raise ValueError("bead or cell count does not fit 32-bit indices")
+    # The kernel copies positions 16 bytes and factors 8 bytes at a time.
+    _check_tensor("xyz", layout.xyz, torch.float32, (n, 4), device, 16)
+    _check_tensor("ab", layout.ab, torch.float32, (n, 2), device, 8)
+    _check_tensor("cell_id", layout.cell_id, torch.int32, (n,), device, 4)
+    _check_tensor("cell_start", layout.cell_start, torch.int32, (cells + 1,), device, 4)
+    _check_tensor("order", layout.order, torch.int64, (n,), device, 8)
+
+
+def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False):
+    """Check the inputs, allocate the outputs and launch one of the two
+    kernels on the current stream, without synchronising.  Returns (forces
+    (N, 3), per-bead energy (N,) or None): in bead order from the kernel the
+    package runs, in sorted order from the first version."""
+    e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
+    _check_layout(layout)
+    device = layout.xyz.device
+    n = layout.n
+    launch = _entry_points()[1 if thread_per_bead else 0]
+    forces = torch.empty((n, 3), dtype=torch.float32, device=device)
+    per_bead = (
+        torch.empty((n,), dtype=torch.float32, device=device) if with_energy else None
+    )
+    pointers = [
+        layout.xyz.data_ptr(), layout.ab.data_ptr(),
+        layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
+    ]
+    if not thread_per_bead:
+        pointers.append(layout.order.data_ptr())
+    with torch.cuda.device(device):
+        status = launch(
+            *pointers, n, layout.dims, layout.dims, layout.dims,
+            e_a, inv_da2, e_b, inv_db2,
+            forces.data_ptr(), per_bead.data_ptr() if with_energy else None,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"ab_pair_forces kernel launch failed: CUDA error {status}")
+    return forces, per_bead
 
 
 def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
@@ -227,41 +292,8 @@ def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
     """
     if layout.xyz.device.type != "cuda":
         return ab_pair_forces_reference(layout, params, with_energy)
-
-    e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
-    device = layout.xyz.device
-    n = layout.n
-    cells = layout.num_cells
-    if cells >= 2 ** 31 - 1 or n >= 2 ** 31 - 1:
-        raise ValueError("bead or cell count does not fit 32-bit indices")
-    _check_tensor("xyz", layout.xyz, torch.float32, (n, 4), device)
-    _check_tensor("ab", layout.ab, torch.float32, (n, 2), device)
-    _check_tensor("cell_id", layout.cell_id, torch.int32, (n,), device)
-    _check_tensor("cell_start", layout.cell_start, torch.int32, (cells + 1,), device)
-    _check_tensor("order", layout.order, torch.int64, (n,), device)
-
-    launch = _library()
-    forces_sorted = torch.empty((n, 3), dtype=torch.float32, device=device)
-    per_bead = (
-        torch.empty((n,), dtype=torch.float32, device=device) if with_energy else None
-    )
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = launch(
-            layout.xyz.data_ptr(), layout.ab.data_ptr(),
-            layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
-            n, layout.dims, layout.dims, layout.dims,
-            e_a, inv_da2, e_b, inv_db2,
-            forces_sorted.data_ptr(),
-            per_bead.data_ptr() if with_energy else None,
-            stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"ab_pair_forces kernel launch failed: CUDA error {status}")
+    forces, per_bead = _launch(layout, params, with_energy)
     ab_pair_forces.launches += 1
-
-    forces = torch.empty_like(forces_sorted)
-    forces[layout.order] = forces_sorted
     energy = per_bead.sum() if with_energy else forces.new_zeros(())
     return forces, energy
 
@@ -271,10 +303,40 @@ def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
 ab_pair_forces.launches = 0
 
 
+def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: bool = False):
+    """The first version of the kernel (one thread per sorted bead, result
+    un-sorted by an indexed copy), with the interface of
+    :func:`ab_pair_forces`.  The package does not run it: the card smoke test
+    and the step profile time the kernel above against it within one run."""
+    forces_sorted, per_bead = _launch(layout, params, with_energy, thread_per_bead=True)
+    _ab_pair_forces_thread_per_bead.launches += 1
+    forces = torch.empty_like(forces_sorted)
+    forces[layout.order] = forces_sorted
+    energy = per_bead.sum() if with_energy else forces.new_zeros(())
+    return forces, energy
+
+
+_ab_pair_forces_thread_per_bead.launches = 0
+
+
 def candidate_pairs(layout: CellLayout) -> int:
-    """Ordered candidate pairs (i, j != i) the kernel walks for this layout:
-    the work its float32 bound is computed from."""
+    """Ordered candidate pairs (i, j != i) of the 27-cell stencil for this
+    layout: the work the kernel's float32 bound is computed from."""
     total = 0
     for _, count in stencil_ranges(layout):
         total += int(count.sum())
     return total - layout.n
+
+
+def pairs_in_reach(layout: CellLayout, params) -> int:
+    """Ordered pairs (i, j != i) among the candidates that pass
+    :func:`in_reach`: the pairs the inputs strictly need evaluated."""
+    _, inv_da2, _, inv_db2 = _check_params(layout, params)
+    pos = layout.xyz[:, :3]
+    total = 0
+    for start, count in stencil_ranges(layout):
+        for i, j in expand_ranges(start, count):
+            dx = pos[i] - pos[j]
+            r2 = torch.sum(dx * dx, dim=-1)
+            total += int((in_reach(r2, inv_da2, inv_db2) & (i != j)).sum())
+    return total

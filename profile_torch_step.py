@@ -50,8 +50,6 @@ def main():
     import chip_smoke
     from genome_cycle_tpu_torch import convert
     from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
-    from genome_cycle_tpu_torch.models.prepare import run_prepare
-    from genome_cycle_tpu_torch.models.transitions import transition_interphase
     from genome_cycle_tpu_torch.ops import pair_kernels as pk
     from genome_cycle_tpu_torch.ops.contact import empty_window_acc, merge_events_acc
     from genome_cycle_tpu_torch.ops.integrator import BDParams, bd_update
@@ -63,16 +61,9 @@ def main():
     ).stdout.strip().splitlines()[0]
 
     os.makedirs(args.out, exist_ok=True)
-    config_path = os.path.join(args.out, "profile_config.json")
-    with open(config_path, "w") as f:
-        json.dump(chip_smoke.CONFIG, f)
-    store = MemoryStore()
-    run_prepare(store, config_path, chip_smoke.CHAINS, seed=chip_smoke.SEED,
-                log=lambda m: None)
-    config = store.load_config()
+    store, config = chip_smoke.prepare_nucleus(
+        MemoryStore(), os.path.join(args.out, "profile_config.json"))
     c = config.interphase
-    chip_smoke.seed_telophase(store, config.mitotic_phase.telophase_packing_radius)
-    transition_interphase(store, log=lambda m: None)
     store.set_stage("relaxation")
     model = InterphaseModel.from_design(
         store.load_interphase_design(), config, EngineSettings(), device
@@ -99,6 +90,9 @@ def main():
     layers = {
         "layout_sort": host_ms(lambda: model.cell_layout(x), n),
         "pair_kernel": host_ms(lambda: pk.ab_pair_forces(layout, kparams), n),
+        # The kernel's first version, for comparison; no part of a step.
+        "pair_kernel_first_version": host_ms(
+            lambda: pk._ab_pair_forces_thread_per_bead(layout, kparams), n),
         "bonded": host_ms(lambda: model.bonded_forces(x, bond), n),
         "wall": host_ms(lambda: model.wall_forces_rows(x, semiaxes, core), n),
         "update": host_ms(lambda: bd_update(
@@ -149,10 +143,12 @@ def main():
         "device": torch.cuda.get_device_name(0),
         "particles": model.n,
         "g1_step_of_structure": step0,
-        "candidates": pk.candidate_pairs(model.cell_layout(state[0])),
+        "candidates": pk.candidate_pairs(layout),
+        "pairs_in_reach": pk.pairs_in_reach(layout, kparams),
         "events_per_tick": int(events.shape[0]),
         "layers_ms_per_step": layers,
-        "layers_sum_ms": sum(layers.values()),
+        "layers_sum_ms": sum(
+            ms for name, ms in layers.items() if name != "pair_kernel_first_version"),
         "whole_step_ms": step_ms,
         "tick_ms": tick_ms,
         "merge_ms": merge_ms,
@@ -165,6 +161,8 @@ def main():
             "device_busy_share": device_ms / window_ms if window_ms else None,
             "device_busy_share_of_unprofiled_steps": device_ms / (50 * step_ms),
             "device_kernel_launches_per_step": sum(v[1] for v in by_kernel.values()) / 50,
+            "pair_kernel_device_ms": sum(
+                v[0] for name, v in by_kernel.items() if "ab_pair_forces" in name),
             "top_device_kernels_ms_total_and_count": [
                 [name[:90], round(ms, 3), count] for name, (ms, count) in top
             ],

@@ -1,5 +1,6 @@
 """The port imports torch, never jax and nothing of the JAX package."""
 
+import pathlib
 import subprocess
 import sys
 
@@ -11,7 +12,12 @@ MODULES = [
     "genome_cycle_tpu_torch.convert",
     "genome_cycle_tpu_torch.models.interphase",
     "genome_cycle_tpu_torch.ops.pair_kernels",
+    # The scripts at the root that run the port on a card.
+    "chip_smoke",
+    "profile_torch_step",
+    "tune_pair_kernel",
 ]
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -25,7 +31,9 @@ def test_import_pulls_in_no_jax(module):
         "assert 'h5py' not in sys.modules, 'h5py imported at module import'\n"
         "assert 'triton' not in sys.modules\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT
+    )
     assert proc.returncode == 0, proc.stderr
 
 

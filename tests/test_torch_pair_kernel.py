@@ -7,6 +7,9 @@ Tolerance: max|dF| <= 1e-4 * max(|F|, 1), that test's own limit (float32 sums
 in another order); energies 1e-5 relative.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -234,3 +237,173 @@ def test_cpu_wrapper_counts_no_launch():
     before = pk.ab_pair_forces.launches
     pk.ab_pair_forces(_layout(x, af, bf), _kparams(1.0)[0])
     assert pk.ab_pair_forces.launches == before
+
+
+def _overfull_cell(dense=600, spread=100, seed=21):
+    """One cell ([0, 0.3)^3 of the grid over [-1.2, 1.2]^3) that holds more
+    beads than a block owns and more than one tile of candidates, beside
+    spread beads that leave the grid's upper corner empty."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([
+        rng.uniform(0.02, 0.27, (dense, 3)), rng.uniform(-1.1, 0.85, (spread, 3)),
+    ]).astype(np.float32)
+    af = rng.uniform(0, 1, len(x)).astype(np.float32)
+    return x, af, (1.0 - af).astype(np.float32)
+
+
+@pytest.mark.parametrize("core_scale", [0.5, 1.0])
+def test_early_rejection_is_value_neutral(core_scale):
+    """Dropping the candidates beyond the larger core diameter before the
+    softcore terms changes no bit of the forces or the energy: every term
+    dropped is exactly zero."""
+    x, af, bf = _beads()
+    layout = _layout(x, af, bf)
+    kparams, _ = _kparams(core_scale)
+    e_a, inv_da2, e_b, inv_db2 = kparams
+    pos, a, b = layout.xyz[:, :3], layout.ab[:, 0], layout.ab[:, 1]
+    dropped = kept = 0
+    for start, count in pk.stencil_ranges(layout):
+        for i, j in pk.expand_ranges(start, count):
+            dx = pos[i] - pos[j]
+            r2 = torch.sum(dx * dx, dim=-1)
+            out = ~pk.in_reach(r2, inv_da2, inv_db2)
+            i, j, r2 = i[out], j[out], r2[out]
+            # The plain version's terms, for the candidates out of reach.
+            a_mix, b_mix = 0.5 * (a[i] + a[j]), 0.5 * (b[i] + b[j])
+            core_a = torch.clamp(1.0 - r2 * inv_da2, min=0.0)
+            s_b = r2 * inv_db2
+            core_b = torch.clamp(1.0 - s_b ** 4, min=0.0)
+            coeff = (a_mix * (6.0 * e_a * inv_da2) * core_a ** 2
+                     + b_mix * (24.0 * e_b * inv_db2) * s_b ** 3 * core_b ** 2)
+            u = a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3
+            assert not coeff.any() and not u.any()
+            dropped += len(i)
+            kept += len(out) - len(i)
+    f_all, _ = pk.ab_pair_forces_reference(layout, kparams)
+    assert f_all.abs().max() > 1.0
+    # And the test does drop most of them.
+    assert kept - layout.n == pk.pairs_in_reach(layout, kparams)
+    assert dropped > kept and dropped + kept - layout.n == pk.candidate_pairs(layout)
+
+
+def test_in_reach_is_exactly_where_a_core_is_positive():
+    """At squared distances around both diameters, to the last bit."""
+    inv_da2, inv_db2 = np.float32(1 / 0.09), np.float32(1 / 0.0576)
+    centre = np.asarray([0.0576, 0.09], np.float32)
+    r2 = np.concatenate([
+        np.nextafter(centre, np.float32(0.0)), np.nextafter(centre, np.float32(1.0)),
+        centre, np.linspace(0.0, 0.2, 4001, dtype=np.float32),
+    ]).astype(np.float32)
+    r2 = torch.as_tensor(r2)
+    core_a = torch.clamp(1.0 - r2 * float(inv_da2), min=0.0)
+    core_b = torch.clamp(1.0 - (r2 * float(inv_db2)) ** 4, min=0.0)
+    reach = pk.in_reach(r2, float(inv_da2), float(inv_db2))
+    assert torch.equal(reach, (core_a > 0) | (core_b > 0))
+    assert reach.any() and not reach.all()
+
+
+@pytest.mark.parametrize("core_scale", [0.5, 1.0])
+def test_pairs_in_reach_against_numpy(core_scale):
+    x, af, bf = _beads(400, seed=8)
+    kparams, _ = _kparams(core_scale)
+    d2 = ((x[:, None, :].astype(np.float64) - x[None, :, :]) ** 2).sum(-1)
+    reach2 = (0.3 * core_scale) ** 2
+    edge = np.abs(d2 - reach2) < 1e-6            # either way in float32
+    want = int((d2 < reach2).sum()) - len(x)
+    got = pk.pairs_in_reach(_layout(x, af, bf), kparams)
+    assert abs(got - want) <= int(edge.sum())
+    assert 0 < got < pk.candidate_pairs(_layout(x, af, bf))
+
+
+def _kernel_constants():
+    """The compile-time constants of the CUDA kernel as its source sets them."""
+    source = pathlib.Path(pk.__file__).resolve().parent.parent / "csrc" / "ab_pair_forces.cu"
+    text = source.read_text()
+    return tuple(
+        int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+        for name in ("kBlock", "kLanes", "kTile", "kWiden")
+    )
+
+
+def _kernel_work_split(layout, threads, lanes, tile, widen):
+    """Pure-Python model of ab_pair_forces_cell_kernel's work split: every
+    (i, j) a thread evaluates, from block to run of sorted beads to home-cell
+    segment, through the nine stencil ranges cut into tiles, each bead's
+    lanes striding through a tile, the bead itself left out.
+
+    It is a transcript of the kernel's control flow, not a check of the
+    kernel: edit the two together.  (The kernel's other two constants, the
+    unrolling and the blocks an SM must hold, do not enter the split; the
+    card tests hold the kernel itself against the plain version on the same
+    three inputs.)"""
+    n, d = layout.n, layout.dims
+    cell_id, starts = layout.cell_id.tolist(), layout.cell_start.tolist()
+    run = threads // lanes
+    pairs = []
+    for block in range(-(-n // run)):
+        run_end = min(n, (block + 1) * run)
+        seg_begin = block * run
+        while seg_begin < run_end:
+            c = cell_id[seg_begin]
+            seg_end = min(run_end, starts[c + 1])
+            beads = seg_end - seg_begin
+            cz, cy, cx = c % d, (c // d) % d, c // (d * d)
+            begin, length = [0] * 9, [0] * 9
+            for r in range(9):
+                x, y = cx + r // 3 - 1, cy + r % 3 - 1
+                if 0 <= x < d and 0 <= y < d:
+                    column = (x * d + y) * d
+                    begin[r] = starts[column + max(cz - 1, 0)]
+                    length[r] = starts[column + min(cz + 1, d - 1) + 1] - begin[r]
+            prefix = [sum(length[:r]) for r in range(10)]
+            total = prefix[9]
+            shift = lanes.bit_length() - 1
+            while widen and shift < 5 and (beads << (shift + 1)) <= threads:
+                shift += 1
+            width = 1 << shift
+            for t in range(-(-total // tile)):
+                base = t * tile
+                size = min(tile, total - base)
+                staged = []
+                for k in range(size):
+                    v = base + k
+                    r = sum(v >= prefix[q] for q in range(1, 9))
+                    staged.append(begin[r] + v - prefix[r])
+                for tid in range(threads):
+                    bead, lane = tid >> shift, tid & (width - 1)
+                    if bead >= beads:
+                        continue
+                    i = seg_begin + bead
+                    self_here = prefix[4] + (i - begin[4]) - base
+                    pairs += [(i, staged[v]) for v in range(lane, size, width) if v != self_here]
+            seg_begin = seg_end
+    return pairs
+
+
+@pytest.mark.parametrize("constants", ["as built", (64, 4, 16, 1), (32, 32, 8, 0), (64, 1, 40, 0)])
+@pytest.mark.parametrize("case", ["overfull cell", "single-cell grid", "one bead"])
+def test_kernel_work_split_covers_each_pair_once(case, constants):
+    threads, lanes, tile, widen = _kernel_constants() if constants == "as built" else constants
+    if case == "overfull cell":
+        x, af, bf = _overfull_cell()
+        layout = _layout(x, af, bf)
+        counts = np.diff(layout.cell_start.numpy())
+        assert counts.max() > threads // lanes and counts.max() > tile
+        assert counts[-1] == 0 and layout.num_cells == 512           # empty corner
+    elif case == "single-cell grid":
+        rng = np.random.default_rng(22)
+        x = rng.uniform(-0.1, 0.1, (150, 3)).astype(np.float32)
+        layout = _layout(x, np.ones(150, np.float32), np.zeros(150, np.float32), bound=0.1)
+        assert layout.num_cells == 1
+    else:
+        layout = _layout(np.zeros((1, 3), np.float32), np.ones(1, np.float32),
+                         np.zeros(1, np.float32))
+    want = []
+    for start, count in pk.stencil_ranges(layout):
+        for i, j in pk.expand_ranges(start, count):
+            keep = i != j
+            want += list(zip(i[keep].tolist(), j[keep].tolist()))
+    got = _kernel_work_split(layout, threads, lanes, tile, widen)
+    assert len(got) == len(want) == pk.candidate_pairs(layout)
+    assert sorted(got) == sorted(want)
+    assert len(set(got)) == len(got)
