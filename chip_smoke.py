@@ -14,14 +14,18 @@ prints no result.  It
    kernel the package runs and its first version, kept as a yardstick;
 3. holds the kernel's wrapper against its plain PyTorch version on the card
    (and the first version too): at 300 beads, at inputs made for the kernel's
-   control flow, and at the production nucleus' 59,610 particles; checks that
-   two launches give the same bits; and times new and first version in turns;
-4. drives the port's main path at full width — ``run_prepare`` on the diploid
-   hg38 nucleus at 100 kb per bead, a telophase frame seeded here (the port
-   has no anaphase/telophase yet), ``transition_interphase``,
-   ``run_interphase`` on the card — with the depth cut to 2,000 relaxation
-   and 10,000 G1 steps, and checks what it wrote;
-5. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
+   control flow, and at three structures of the main path's 59,610 particles;
+   checks that two launches give the same bits; and times new and first
+   version in turns;
+4. drives the port's main path at full width, a whole cell cycle of the
+   diploid hg38 nucleus at 100 kb per bead through the entry points the CLI
+   command ``cycles`` chains — ``run_prepare``, ``run_anatelophase``,
+   ``transition_interphase``, ``run_interphase`` (59,610 particles),
+   ``transition_prometaphase``, ``run_prometaphase``, all on the card — with
+   the depth cut (``CONFIG`` below), and checks what every stage wrote;
+5. hands the metaphase over to a second cell (``transition_cycle``), runs a
+   short anaphase there and checks that it started from the hand-off;
+6. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
@@ -43,12 +47,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 CHAINS = os.path.join(ROOT, "examples", "hg38_chains_100kb.tsv")
-# Depth cut from the production schedule's 10,000 relaxation and 700,000 G1
-# steps; every other field at its default, the width (59,610 particles) uncut.
-CONFIG = {"interphase": {"steps": 10000, "relaxation_steps": 2000,
+# Depth cut from the production schedule's 200,000 anaphase, 50,000 telophase,
+# 10,000 relaxation, 700,000 G1 and 400,000 prometaphase steps; every other
+# field at its default, the width (59,610 particles, 576 coarse beads, 1,152
+# with sisters) uncut.  The kinetochore fibers relax in 10,000 steps (decay
+# rate 1, timestep 1e-4), so 40,000 anaphase steps bring the chromosomes to
+# the pole; the packing well acts on every bead ten times faster.
+CONFIG = {"mitotic_phase": {"anaphase_steps": 40000, "telophase_steps": 10000,
+                            "prometaphase_steps": 10000},
+          "interphase": {"steps": 10000, "relaxation_steps": 2000,
                          "contactmap_output_window": 5}}
+# The second cell runs only far enough to show that it started from the
+# hand-off.
+CONFIG_NEXT = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 1000}}
 SEED = 1
 EXPECTED_PARTICLES = 59610
+EXPECTED_COARSE = 576
+
+# Limits of the mitotic checks.
+BOND_LENGTH_BAND = 0.2        # mean chain-bond length within bond_length +- 20 %
+ARRIVAL_FRACTION = 0.1        # mean kinetochore-pole distance, end over start
+PACKING_MARGIN = 0.75         # beads within telophase_packing_radius + margin
+COHESION_BAND = 0.5           # sister distance within +- 50 % of its balance
 
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM.
 PEAK_FP32_FLOPS = 67e12
@@ -181,22 +201,36 @@ def small_inputs(pk, device):
     return cases
 
 
-def prepare_nucleus(target, config_path):
-    """The production nucleus up to the start of the relaxation: prepare, a
-    telophase frame seeded here (the port has no anaphase/telophase yet),
-    transition to interphase.  Returns (store, config)."""
+def open_store(workdir, name, config, seed):
+    """``run_prepare`` of the production nucleus with ``config`` into an HDF5
+    file, or into a ``MemoryStore`` (same schema, no file) without h5py."""
     from genome_cycle_tpu_torch.models.prepare import run_prepare
-    from genome_cycle_tpu_torch.models.transitions import transition_interphase
-    from genome_cycle_tpu_torch.store import SimulationStore
+    from genome_cycle_tpu_torch.store import MemoryStore, SimulationStore
 
+    config_path = os.path.join(workdir, name + ".json")
     with open(config_path, "w") as f:
-        json.dump(CONFIG, f)
-    run_prepare(target, config_path, CHAINS, seed=SEED, log=lambda m: phase("prepare", m))
-    store = SimulationStore(target) if isinstance(target, str) else target
-    config = store.load_config()
-    seed_telophase(store, config.mitotic_phase.telophase_packing_radius)
-    transition_interphase(store, log=lambda m: None)
-    return store, config
+        json.dump(config, f)
+    try:
+        import h5py  # noqa: F401
+        target = os.path.join(workdir, name + ".h5")
+    except ImportError:
+        target = MemoryStore()
+    run_prepare(target, config_path, CHAINS, seed=seed, log=lambda m: phase("prepare", m))
+    return SimulationStore(target) if isinstance(target, str) else target
+
+
+def prepare_nucleus(workdir, device, timings=None):
+    """The production nucleus up to the start of the relaxation, by the
+    port's own stages at ``CONFIG``'s depth: prepare, anaphase and telophase
+    on ``device``, transition to interphase.  Returns (store, config)."""
+    from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
+    from genome_cycle_tpu_torch.models.transitions import transition_interphase
+
+    run_log = lambda m: phase("run", m.replace("\t", " "))
+    store = open_store(workdir, "cell_0", CONFIG, SEED)
+    run_anatelophase(store, log=run_log, device=device, timings=timings)
+    transition_interphase(store, log=run_log)
+    return store, store.load_config()
 
 
 def time_in_turns(first, second, repeats):
@@ -207,27 +241,114 @@ def time_in_turns(first, second, repeats):
     return 0.5 * (a1 + a2), 0.5 * (b1 + b2)
 
 
-def seed_telophase(store, radius, step_length=0.3):
-    """Per coarse chain a random walk confined to the ball of ``radius``,
-    written as the only telophase frame."""
-    rng = np.random.default_rng(SEED)
+def stage_frames(store, stage, steps, interval, n):
+    """The frames of a mitotic stage: at the expected steps, of the expected
+    shape, finite.  Returns them as a list."""
+    store.set_stage(stage)
+    found = store.load_steps()
+    if found != list(range(0, steps + 1, interval)):
+        fail("check", f"{stage} frames {found}")
+    frames = [store.load_positions(step) for step in found]
+    for step, x in zip(found, frames):
+        if x.shape != (n, 3) or not np.isfinite(x).all():
+            fail("check", f"{stage} positions at step {step}: shape {x.shape} or not finite")
+    return frames
+
+
+def check_bond_length(stage, x, chains, m):
+    """Mean distance of consecutive beads of a chain against bond_length."""
+    lengths = np.concatenate([
+        np.linalg.norm(np.diff(x[c.start:c.end], axis=0), axis=1) for c in chains])
+    mean = float(lengths.mean())
+    phase("check", f"{stage}: mean chain-bond length {mean:.4f} "
+                   f"(bond_length {m.bond_length} +- {BOND_LENGTH_BAND:.0%}), longest {lengths.max():.3f}")
+    if abs(mean - m.bond_length) > BOND_LENGTH_BAND * m.bond_length:
+        fail("check", f"{stage}: mean chain-bond length {mean}")
+
+
+def check_anatelophase(store, m):
+    """Anaphase: the kinetochores arrive at the shifted pole.  Telophase: the
+    packing well holds every bead."""
     design = store.load_anatelophase_design()
-    positions = np.zeros((design.particle_count, 3))
-    for chain in design.chains:
-        direction = rng.normal(size=3)
-        point = direction / np.linalg.norm(direction) * radius * rng.uniform() ** (1 / 3)
-        for bead in range(chain.start, chain.end):
-            positions[bead] = point
-            while True:
-                direction = rng.normal(size=3)
-                trial = point + step_length * direction / np.linalg.norm(direction)
-                if np.linalg.norm(trial) <= radius:
-                    point = trial
-                    break
-    store.set_stage("telophase")
-    store.save_positions(0, positions)
-    store.append_frame(0)
-    return design.particle_count
+    n = design.particle_count
+    kinetochores = [c.kinetochore for c in design.chains if c.kinetochore is not None]
+    pole = np.asarray(m.anaphase_spindle_shift)
+    anaphase = stage_frames(store, "anaphase", m.anaphase_steps, m.sampling_interval, n)
+    start, end = (float(np.linalg.norm(x[kinetochores] - pole, axis=1).mean())
+                  for x in (anaphase[0], anaphase[-1]))
+    phase("check", f"anaphase: {n} beads, {len(kinetochores)} kinetochores; mean "
+                   f"kinetochore-pole distance {start:.3f} -> {end:.3f} "
+                   f"({end / start:.4f} of its start, limit {ARRIVAL_FRACTION})")
+    if not end < ARRIVAL_FRACTION * start:
+        fail("check", "the kinetochores did not arrive at the pole")
+    check_bond_length("anaphase", anaphase[-1], design.chains, m)
+    telophase = stage_frames(store, "telophase", m.telophase_steps, m.sampling_interval, n)
+    if not np.array_equal(telophase[0], anaphase[-1]):
+        fail("check", "telophase does not start from the last anaphase frame")
+    reach = float(np.linalg.norm(telophase[-1], axis=1).max())
+    phase("check", f"telophase: farthest bead {reach:.3f} from the origin (packing radius "
+                   f"{m.telophase_packing_radius} + {PACKING_MARGIN}), from "
+                   f"{np.linalg.norm(telophase[0], axis=1).max():.3f} at its start")
+    if reach > m.telophase_packing_radius + PACKING_MARGIN:
+        fail("check", "a telophase bead lies outside the packing well")
+    check_bond_length("telophase", telophase[-1], design.chains, m)
+    return telophase[-1]
+
+
+def check_prometaphase(store, m):
+    """Sister kinetochores stay together under the pull of the two fibers,
+    and each faces its own pole."""
+    design = store.load_prometaphase_design()
+    n = design.particle_count
+    frames = stage_frames(store, "prometaphase", m.prometaphase_steps, m.sampling_interval, n)
+    x = frames[-1]
+    pairs = [(design.chains[t], design.chains[s]) for t, s in design.sister_chromatids]
+    pairs = [(t, s) for t, s in pairs if t.kinetochore is not None and s.kinetochore is not None]
+    target = x[[t.kinetochore for t, _ in pairs]]
+    sister = x[[s.kinetochore for _, s in pairs]]
+    target_pole, sister_pole = design.pole_positions
+    distance = float(np.linalg.norm(target - sister, axis=1).mean())
+    # Each fiber pulls its kinetochore with K |r - pole|, K = decay rate x
+    # chain length / mobility; the cohesion spring (bond_spring) carries it.
+    pull = np.asarray([
+        m.kfiber_decay_rate_prometaphase * (t.end - t.start) / m.core_mobility
+        * np.linalg.norm(target_pole) for t, _ in pairs])
+    balance = m.sister_separation + float(pull.mean()) / m.bond_spring
+    nearer = float((np.linalg.norm(sister - target_pole, axis=1)
+                    - np.linalg.norm(target - target_pole, axis=1)).mean())
+    phase("check", f"prometaphase: {n} beads, {len(pairs)} sister pairs; mean sister-kinetochore "
+                   f"distance {distance:.4f} (sister_separation {m.sister_separation}, with the "
+                   f"fibers' pull over the cohesion spring {balance:.4f} +- {COHESION_BAND:.0%}); "
+                   f"targets nearer the target pole than their sisters by {nearer:.4f} on average; "
+                   f"plate at y = {x[:, 1].mean():.3f}")
+    if abs(distance - balance) > COHESION_BAND * balance:
+        fail("check", f"sister kinetochores {distance} apart")
+    if not nearer > 0:
+        fail("check", "target kinetochores do not face the target pole")
+    check_bond_length("prometaphase", x, design.chains, m)
+    return x
+
+
+def check_hand_off(prev, nxt, m):
+    """The second cell's anaphase starts from the first cell's target
+    chromatids, moved by -spindle_axis, not from rods."""
+    metaphase = prev.load_prometaphase_design()
+    design = nxt.load_anatelophase_design()
+    prev.set_stage("prometaphase")
+    last = prev.load_positions(prev.load_steps()[-1])
+    want = np.zeros((design.particle_count, 3))
+    for k, chain in enumerate(design.chains):
+        source = metaphase.chains[int(metaphase.sister_chromatids[k][0])]
+        want[chain.start:chain.end] = last[source.start:source.end] - np.asarray(m.spindle_axis)
+    frames = stage_frames(nxt, "anaphase", CONFIG_NEXT["mitotic_phase"]["anaphase_steps"],
+                          m.sampling_interval, design.particle_count)
+    error = float(np.abs(frames[0] - want).max())
+    moved = float(np.abs(frames[-1] - frames[0]).max())
+    phase("check", f"hand-off: frame 0 of the second cell's anaphase is the first cell's target "
+                   f"chromatids - spindle_axis to {error:.2e}; the anaphase moved them by "
+                   f"up to {moved:.3f}")
+    if error > 1e-3 or not moved > 0:
+        fail("check", "the second cell did not start from the hand-off")
 
 
 def check_output(store, model_n, icfg):
@@ -284,9 +405,13 @@ def main():
     ).stdout.strip().splitlines()[0]
     phase("device", f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from genome_cycle_tpu_torch.config import parse_config
+    from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
     from genome_cycle_tpu_torch.models.interphase import (
         EngineSettings, InterphaseModel, run_interphase,
+    )
+    from genome_cycle_tpu_torch.models.prometaphase import run_prometaphase
+    from genome_cycle_tpu_torch.models.transitions import (
+        transition_cycle, transition_prometaphase,
     )
     from genome_cycle_tpu_torch.ops import _build
     from genome_cycle_tpu_torch.ops import pair_kernels as pk
@@ -313,48 +438,38 @@ def main():
     for name, layout, params in small_inputs(pk, device):
         compare(f"kernel: {name}", layout, params, pk, errors)
 
-    # ---- 4a. main path: prepare, telophase seed, transition ----------------
+    # ---- 4. main path: one whole cell cycle on the card ----------------------
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    run_log = lambda m: phase("run", m.replace("\t", " "))
     try:
-        try:
-            import h5py  # noqa: F401
-            target = os.path.join(workdir, "cell.h5")
-            phase("store", "h5py found: HDF5 trajectory file")
-        except ImportError:
-            target = MemoryStore()
-            phase("store", "no h5py: in-memory store (same schema, no file)")
-        store, config = prepare_nucleus(target, os.path.join(workdir, "config.json"))
-        icfg = config.interphase
-        design = store.load_interphase_design()
-        n = design.particle_count
-        if n != EXPECTED_PARTICLES:
-            fail("prepare", f"{n} particles, expected {EXPECTED_PARTICLES}")
-        store.set_stage("relaxation")
-        x_before = store.load_positions(0)
-
-        model = InterphaseModel.from_design(design, config, EngineSettings(), device)
-
-        def layout_of(x_host):
-            x = torch.as_tensor(x_host, dtype=torch.float32, device=device)
-            model.update_bound(float(x.abs().max()))
-            return model.cell_layout(x)
-
-        # ---- 3b. kernel against its plain version, full width --------------
-        p_init = kernel_params(icfg.core_scale_init, icfg)
-        compare("kernel: 59,610 beads before relaxation", layout_of(x_before), p_init,
-                pk, errors)
-
-        # ---- 4b. main path: relaxation + G1 on the card ---------------------
         torch.cuda.reset_peak_memory_stats()
         pk.ab_pair_forces.launches = 0
         timings = {}
-        final = run_interphase(
-            store, log=lambda m: phase("run", m.replace("\t", " ")),
-            device=device, timings=timings,
-        )
+        phase("depth", f"cut to {json.dumps(CONFIG)}; second cell {json.dumps(CONFIG_NEXT)}")
+        store, config = prepare_nucleus(workdir, device, timings)
+        phase("store", f"{type(store).__name__}"
+                       + ("" if isinstance(store, MemoryStore) else ": HDF5 trajectory file"))
+        icfg, m = config.interphase, config.mitotic_phase
+        design = store.load_interphase_design()
+        n = design.particle_count
+        coarse = store.load_anatelophase_design().particle_count
+        if (n, coarse) != (EXPECTED_PARTICLES, EXPECTED_COARSE):
+            fail("prepare", f"{n} particles and {coarse} coarse beads, expected "
+                            f"{EXPECTED_PARTICLES} and {EXPECTED_COARSE}")
+        final = run_interphase(store, log=run_log, device=device, timings=timings)
+        transition_prometaphase(store, log=run_log)
+        metaphase = run_prometaphase(store, log=run_log, device=device, timings=timings)
         launches = pk.ab_pair_forces.launches
         peak_bytes = torch.cuda.max_memory_allocated()
 
+        # ---- what the cycle wrote -------------------------------------------
+        telophase = check_anatelophase(store, m)
+        store.set_stage("relaxation")
+        x_before = store.load_positions(0)
+        reach = float(np.linalg.norm(x_before, axis=1).max())
+        phase("check", f"relaxation starts from the port's own telophase: {n} particles "
+                       f"within {reach:.3f} of the origin (telophase beads within "
+                       f"{np.linalg.norm(telophase, axis=1).max():.3f})")
         steps, relax_steps = icfg.steps, icfg.relaxation_steps
         x_relaxed, x_final, ctx = check_output(store, n, icfg)
         if not np.allclose(final, x_final, rtol=1e-4, atol=1e-4):
@@ -364,10 +479,31 @@ def main():
                           f"expected at least {steps + relax_steps}")
         phase("check", f"frames, windows, positions and semiaxes are sound; "
                        f"kernel launches on the main path: {launches}")
+        x_metaphase = check_prometaphase(store, m)
+        if not np.allclose(metaphase, x_metaphase, rtol=1e-4, atol=1e-4):
+            fail("check", "returned metaphase positions differ from the last stored frame")
+
+        # ---- 5. the second cell: hand-off and a short anaphase ---------------
+        next_store = open_store(workdir, "cell_1", CONFIG_NEXT, SEED + 1)
+        transition_cycle(store, next_store, log=run_log)
+        next_timings = {}
+        run_anatelophase(next_store, log=run_log, device=device, timings=next_timings)
+        check_hand_off(store, next_store, m)
+        next_store.close()
         store.close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    model = InterphaseModel.from_design(design, config, EngineSettings(), device)
+
+    def layout_of(x_host):
+        x = torch.as_tensor(x_host, dtype=torch.float32, device=device)
+        model.update_bound(float(x.abs().max()))
+        return model.cell_layout(x)
+
+    # ---- 3b. kernel against its plain version, full width --------------------
+    p_init = kernel_params(icfg.core_scale_init, icfg)
+    compare("kernel: 59,610 beads before relaxation", layout_of(x_before), p_init, pk, errors)
     # ---- 3b (continued): after relaxation, after G1, and the timings --------
     core_final, _ = model.scales(steps * icfg.timestep)
     p_final = kernel_params(core_final, icfg)
@@ -418,6 +554,13 @@ def main():
     g1 = timings["g1_seconds"]
     rate = timings["g1_steps"] / g1
     share = [steps * timed[k]["ms"] * 1e-3 / g1 for k in ("after relaxation", "after G1")]
+    for stage, beads in (("anaphase", coarse), ("telophase", coarse),
+                         ("prometaphase", len(x_metaphase))):
+        seconds, count = timings[f"{stage}_seconds"], timings[f"{stage}_steps"]
+        phase("rate", f"{stage}: {count / seconds:.2f} steps/s, {beads} beads, over {count} "
+                      f"steps ({seconds:.2f} s, host clock around a synchronize)")
+    phase("rate", "second cell's anaphase: "
+                  f"{next_timings['anaphase_steps'] / next_timings['anaphase_seconds']:.2f} steps/s")
     phase("rate", f"relaxation: {timings['relaxation_steps'] / timings['relaxation_seconds']:.2f} "
                   f"steps/s over {timings['relaxation_steps']} steps")
     phase("rate", f"G1: {rate:.2f} steps/s, {rate * n:.4g} bead-steps/s over "

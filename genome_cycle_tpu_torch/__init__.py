@@ -3,17 +3,22 @@ Brownian-dynamics framework in :mod:`genome_cycle_tpu`.
 
 The JAX package beside this one is the reference; this package imports
 ``torch``, never ``jax`` and nothing of the JAX package.  Ported so far: the
-interphase main path (prepare -> transition interphase -> relaxation + G1).
+whole cell cycle on one device (prepare -> anaphase + telophase -> transition
+interphase -> relaxation + G1 -> transition prometaphase -> prometaphase ->
+transition cycle into the next cell), as the commands ``simulate`` and
+``cycles`` chain it.  Not ported yet: the ensemble and multi-device runs,
+the analysis tools and the bench.
 
 Layout (same module and function names as the JAX package):
 
 - :mod:`genome_cycle_tpu_torch.config`    — JSON config (reference-compatible schema)
 - :mod:`genome_cycle_tpu_torch.topology`  — chains.tsv parsing + topology compiler
 - :mod:`genome_cycle_tpu_torch.store`     — HDF5 trajectory store + in-memory twin
-- :mod:`genome_cycle_tpu_torch.ops`       — potentials, bonded and wall forces,
-  BD integrator, the A/B pair-force CUDA kernel and its plain version,
-  contact search and window merge
-- :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, interphase
+- :mod:`genome_cycle_tpu_torch.ops`       — potentials, bonded, bending,
+  fiber and wall forces, BD integrator, the A/B pair-force CUDA kernel and its
+  plain version, contact search and window merge
+- :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, anatelophase,
+  interphase, prometaphase
 - :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays
 - :mod:`genome_cycle_tpu_torch.utils`     — splines, logging
 """

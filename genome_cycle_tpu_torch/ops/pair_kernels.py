@@ -142,8 +142,8 @@ def expand_ranges(start, count, max_pairs: int = 1 << 23):
             continue
         i = torch.repeat_interleave(rows_all[lo:hi], cnt, output_size=size)
         first = torch.cumsum(cnt, 0) - cnt          # offset of each bead's run
-        within = torch.arange(size, device=start.device) - first[i - lo]
-        yield i, start[i] + within
+        within = torch.arange(size, device=start.device) - first.index_select(0, i - lo)
+        yield i, start.index_select(0, i) + within
 
 
 def _check_params(layout: CellLayout, params: Sequence[float]):
@@ -179,24 +179,37 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
     a, b = layout.ab[:, 0], layout.ab[:, 1]
     forces_sorted = torch.zeros_like(pos)
     per_bead = pos.new_zeros(pos.shape[0])      # as the kernel: a bead's half of each pair
-    for start, count in stencil_ranges(layout):
-        for i, j in expand_ranges(start, count):
-            dx = pos[i] - pos[j]
-            r2 = torch.sum(dx * dx, dim=-1)
-            a_mix = 0.5 * (a[i] + a[j])
-            b_mix = 0.5 * (b[i] + b[j])
-            core_a = torch.clamp(1.0 - r2 * inv_da2, min=0.0)
-            s_b = r2 * inv_db2
-            core_b = torch.clamp(1.0 - s_b ** 4, min=0.0)
-            coeff = (
-                a_mix * (6.0 * e_a * inv_da2) * core_a ** 2
-                + b_mix * (24.0 * e_b * inv_db2) * s_b ** 3 * core_b ** 2
-            )
-            other = (i != j).to(pos.dtype)
-            forces_sorted.index_add_(0, i, (coeff * other)[:, None] * dx)
-            if with_energy:
-                u = a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3
-                per_bead.index_add_(0, i, 0.5 * u * other)
+    # Shaped for small systems on a CPU, where a call costs its count of
+    # tensor operations: the half stencil's ranges of all beads as one ragged
+    # list, every unordered pair once (both beads get their share), and the
+    # arithmetic only for the pairs in reach (every other term is exactly
+    # zero, see `in_reach`).
+    n = pos.shape[0]
+    ranges = list(stencil_ranges(layout, half=True))
+    starts = torch.cat([start for start, _ in ranges])
+    counts = torch.cat([count for _, count in ranges])
+    for row, j in expand_ranges(starts, counts):
+        i = row % n
+        dx = pos.index_select(0, i) - pos.index_select(0, j)
+        r2 = torch.sum(dx * dx, dim=-1)
+        keep = torch.nonzero(in_reach(r2, inv_da2, inv_db2) & (j > i)).squeeze(1)
+        i, j, dx, r2 = (t.index_select(0, keep) for t in (i, j, dx, r2))
+        a_mix = 0.5 * (a[i] + a[j])
+        b_mix = 0.5 * (b[i] + b[j])
+        core_a = torch.clamp(1.0 - r2 * inv_da2, min=0.0)
+        s_b = r2 * inv_db2
+        core_b = torch.clamp(1.0 - s_b ** 4, min=0.0)
+        coeff = (
+            a_mix * (6.0 * e_a * inv_da2) * core_a ** 2
+            + b_mix * (24.0 * e_b * inv_db2) * s_b ** 3 * core_b ** 2
+        )
+        f = coeff[:, None] * dx
+        forces_sorted.index_add_(0, i, f)
+        forces_sorted.index_add_(0, j, f, alpha=-1)
+        if with_energy:
+            u = 0.5 * (a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3)
+            per_bead.index_add_(0, i, u)
+            per_bead.index_add_(0, j, u)
     forces = torch.empty_like(forces_sorted)
     forces[layout.order] = forces_sorted
     return forces, per_bead.sum()

@@ -1,4 +1,5 @@
-"""The CUDA pair-force kernels against their plain version, on the card.
+"""The CUDA pair-force kernels against their plain version, on the card, and
+the interphase step through the kernel against the C++ surrogate.
 
 These tests need a CUDA card and ``nvcc`` and skip where there is none.  The
 file imports only torch and the port, so that it also runs on a machine
@@ -7,7 +8,9 @@ without JAX:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerance: max|dF| <= 1e-4 * max(|F|, 1) (float32 sums in another order),
-energy 1e-5 relative.
+energy 1e-5 relative.  The statistical gate is that of
+tests/test_torch_correlation.py (Pearson r >= 0.95 and its other bounds); it
+also needs ``g++``.
 """
 
 import numpy as np
@@ -15,6 +18,9 @@ import pytest
 import torch
 
 from genome_cycle_tpu_torch.ops import pair_kernels as pk
+
+import test_torch_correlation as gate
+from test_torch_correlation import surrogate_exe  # noqa: F401  (fixture)
 
 
 def _beads(n, seed):
@@ -124,3 +130,13 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.zeros((101, 2), device=cuda_device).view(-1)[1:-1].view(100, 2)
         pk.ab_pair_forces(layout._replace(ab=shifted), _kparams(1.0))
+
+
+@pytest.mark.gpu
+def test_contact_map_pearson_vs_surrogate_through_the_kernel(
+        cuda_device, surrogate_exe, tmp_path):  # noqa: F811
+    """The gate of tests/test_torch_correlation.py with the port's steps on
+    the card: every pair force comes from the CUDA kernel."""
+    before = pk.ab_pair_forces.launches
+    gate.contact_map_gate(surrogate_exe, tmp_path, cuda_device)
+    assert pk.ab_pair_forces.launches - before == gate.REPLICAS * gate.STEPS

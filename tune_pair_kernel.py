@@ -12,7 +12,8 @@ source as it stands.  This script writes, for each variant in ``VARIANTS``, a
 copy of the source with other values into ``DIR``, builds and loads it itself,
 checks it against the source as it stands, and times the bare launch (CUDA
 events, 20 launches, all variants twice: in order and in reverse) on the
-production nucleus (59,610 particles) at four inputs: before the relaxation,
+production nucleus (59,610 particles, from the port's own anaphase and
+telophase as ``chip_smoke.py`` runs them) at four inputs: before the relaxation,
 after ``--relax-steps`` relaxation steps, after ``--steps`` G1 steps more, and
 that last structure at core scale 1, where the most pairs are in reach.  The
 kernel's first version (one thread per bead) is timed beside them, bare and
@@ -95,7 +96,6 @@ def main():
     from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
     from genome_cycle_tpu_torch.ops import _build
     from genome_cycle_tpu_torch.ops import pair_kernels as pk
-    from genome_cycle_tpu_torch.store import MemoryStore
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -103,8 +103,7 @@ def main():
     ).stdout.strip().splitlines()[0]
 
     os.makedirs(args.out, exist_ok=True)
-    store, config = chip_smoke.prepare_nucleus(
-        MemoryStore(), os.path.join(args.out, "tune_config.json"))
+    store, config = chip_smoke.prepare_nucleus(args.out, device)
     c = config.interphase
     store.set_stage("relaxation")
     model = InterphaseModel.from_design(
