@@ -25,7 +25,13 @@ prints no result.  It
    the depth cut (``CONFIG`` below), and checks what every stage wrote;
 5. hands the metaphase over to a second cell (``transition_cycle``), runs a
    short anaphase there and checks that it started from the hand-off;
-6. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
+6. runs an ensemble of four replicas of the nucleus (4 x 59,610 particles,
+   ``run_ensemble_interphase``) in lock-step after a short anatelophase each,
+   checks every replica's trajectory and that the pair kernel was launched once
+   a step for all four, holds the kernel on the replica-stacked layout against
+   its plain version and against four single-replica launches, and times it
+   against them in turns;
+7. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
@@ -60,6 +66,16 @@ CONFIG = {"mitotic_phase": {"anaphase_steps": 40000, "telophase_steps": 10000,
 # The second cell runs only far enough to show that it started from the
 # hand-off.
 CONFIG_NEXT = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 1000}}
+# The ensemble: four replicas, seeds SEED + 10 + k, each from a short
+# anatelophase of its own; a window every two G1 frames.  6,000 telophase
+# steps pack the beads to within about 1.9 of the origin, as CONFIG's 10,000
+# do (after 1,000 the farthest lies 3.7 out, the wall at 2.0), and the
+# relaxation is as long as CONFIG's: with 4,000 and 1,000 a bead of one
+# replica still lay outside the wall's margin when G1 began.
+REPLICAS = 4
+CONFIG_ENSEMBLE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000},
+                   "interphase": {"steps": 4000, "relaxation_steps": 2000,
+                                  "contactmap_output_window": 2}}
 SEED = 1
 EXPECTED_PARTICLES = 59610
 EXPECTED_COARSE = 576
@@ -393,7 +409,120 @@ def check_output(store, model_n, icfg):
     return relaxed, store.load_positions(frames[-1]), ctx
 
 
+def run_ensemble(workdir, device, run_log):
+    """The ensemble phase on the card: R replicas of the nucleus, each through
+    a short anatelophase and the transition, then their interphase in
+    lock-step.  The kernel's launch count is read around the lock-step run
+    alone.  Returns what the checks and the timings need."""
+    from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
+    from genome_cycle_tpu_torch.models.transitions import transition_interphase
+    from genome_cycle_tpu_torch.ops import pair_kernels as pk
+    from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
+
+    stores = []
+    for k in range(REPLICAS):
+        store = open_store(workdir, f"rep_{k}", CONFIG_ENSEMBLE, SEED + 10 + k)
+        run_anatelophase(store, log=run_log, device=device)
+        transition_interphase(store, log=run_log)
+        store.set_stage("telophase")
+        telophase = store.load_positions(store.load_steps()[-1])
+        store.set_stage("relaxation")
+        phase("ensemble", f"replica {k}: telophase beads within "
+                          f"{np.linalg.norm(telophase, axis=1).max():.3f} of the origin, the "
+                          f"relaxation's start within "
+                          f"{np.linalg.norm(store.load_positions(0), axis=1).max():.3f}")
+        stores.append(store)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    pk.ab_pair_forces.launches = 0
+    final = run_ensemble_interphase(stores, log=run_log, device=device, timings=timings)
+    launches = pk.ab_pair_forces.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    config = stores[0].load_config()
+    icfg = config.interphase
+    n = stores[0].load_interphase_design().particle_count
+    design = stores[0].load_interphase_design()
+    steps = icfg.relaxation_steps + icfg.steps
+    phase("ensemble", f"{REPLICAS} replicas of {n} particles, {REPLICAS * n} beads in lock-step; "
+                      f"kernel launches over the lock-step run: {launches} for {steps} steps")
+    if launches != steps:
+        fail("ensemble", f"the pair kernel was launched {launches} times in {steps} steps: "
+                         "not once a step for all replicas")
+    finals = []
+    for k, store in enumerate(stores):
+        _, x_final, ctx = check_output(store, n, icfg)
+        if not np.allclose(final[k], x_final, rtol=1e-4, atol=1e-4):
+            fail("ensemble", f"replica {k}: returned positions differ from its last stored frame")
+        phase("ensemble", f"replica {k}: frames, windows, positions and semiaxes are sound; "
+                          f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}")
+        finals.append(x_final)
+        store.close()
+    apart = min(float(np.abs(finals[a] - finals[b]).max())
+                for a in range(REPLICAS) for b in range(a))
+    phase("ensemble", f"final positions of any two replicas differ by up to {apart:.4f} at least")
+    if not apart > 1e-2:
+        fail("ensemble", "two replicas ended in the same structure")
+    return dict(final=np.stack(finals), launches=launches, peak_bytes=peak_bytes,
+                timings=timings, config=config, n=n, design=design)
+
+
+def check_ensemble_kernel(ensemble, device, pk, errors):
+    """The kernel on the replica-stacked layout of the ensemble's last frame:
+    against its plain version (`compare`), against a launch for each replica
+    on its own layout over the same grid, and timed against those launches in
+    turns.  Returns the entry for the kernels line."""
+    from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
+
+    config = ensemble["config"]
+    icfg = config.interphase
+    model = InterphaseModel.from_design(ensemble["design"], config, EngineSettings(), device)
+    x = torch.as_tensor(ensemble["final"], dtype=torch.float32, device=device)
+    model.update_bound(float(x.abs().max()))
+    core, _ = model.scales(icfg.steps * icfg.timestep)
+    params = kernel_params(core, icfg)
+    stacked = model.cell_layout(x)
+    singles = [model.cell_layout(x[k]) for k in range(REPLICAS)]
+    compare(f"kernel: {REPLICAS} x {ensemble['n']:,} beads stacked after G1", stacked, params,
+            pk, errors)
+    f_stacked = pk.ab_pair_forces(stacked, params)[0].reshape(x.shape)
+    f_single = torch.stack([pk.ab_pair_forces(layout, params)[0] for layout in singles])
+    torch.cuda.synchronize()
+    diff = float((f_stacked - f_single).abs().max())
+    fmax = float(f_single.abs().max())
+    phase("ensemble", f"stacked layout ({stacked.shape[0]} x {stacked.shape[1]} x "
+                      f"{stacked.shape[2]} cells) against {REPLICAS} single-replica launches: "
+                      f"max|dF| = {diff:.3e}, max|F| = {fmax:.3e}, "
+                      f"equal to the bit: {torch.equal(f_stacked, f_single)}")
+    if not np.isfinite(diff) or diff > FORCE_TOLERANCE * max(fmax, 1.0):
+        fail("ensemble", f"stacked and single-replica forces differ by {diff}")
+
+    def single_launches():
+        for layout in singles:
+            pk.ab_pair_forces(layout, params)
+
+    single_ms, ms = time_in_turns(single_launches, lambda: pk.ab_pair_forces(stacked, params), 20)
+    plain_ms = time_ms(lambda: pk.ab_pair_forces_reference(stacked, params), 2)
+    candidates = pk.candidate_pairs(stacked)
+    in_reach = pk.pairs_in_reach(stacked, params)
+    ops_ms = (OPS_DISTANCE_TEST * candidates + OPS_IN_REACH * in_reach) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = (44 * stacked.n + 4 * stacked.num_cells) / PEAK_BYTES_PER_S * 1e3
+    phase("time", f"ensemble after G1: {stacked.n} beads, {candidates} candidate pairs, "
+                  f"{in_reach} in reach, in {stacked.num_cells} cells; one stacked launch "
+                  f"{ms:.4f} ms, {REPLICAS} single-replica launches {single_ms:.4f} ms "
+                  f"({single_ms / ms:.2f} times); plain {plain_ms:.2f} ms, bound "
+                  f"{max(ops_ms, bytes_ms):.5f} ms ({ops_ms:.5f} operations, {bytes_ms:.5f} bytes)")
+    return dict(ms=ms, single_replica_launches_ms=single_ms, plain_ms=plain_ms,
+                candidates=candidates, pairs_in_reach=in_reach,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                cells=stacked.num_cells, beads=stacked.n, replicas=REPLICAS,
+                max_abs_diff_single=diff, launches=ensemble["launches"])
+
+
 def main():
+    started = time.perf_counter()
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -491,6 +620,10 @@ def main():
         check_hand_off(store, next_store, m)
         next_store.close()
         store.close()
+
+        # ---- 6. the ensemble: four replicas in lock-step ---------------------
+        phase("depth", f"ensemble of {REPLICAS}: {json.dumps(CONFIG_ENSEMBLE)}")
+        ensemble = run_ensemble(workdir, device, run_log)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -549,6 +682,8 @@ def main():
                       f"{plain_ms:.2f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
                       f"({ops_ms:.5f} operations, {bytes_ms:.5f} bytes; "
                       f"{all_ops_ms:.5f} with every candidate evaluated in full)")
+    timed[f"ensemble of {REPLICAS} after G1"] = check_ensemble_kernel(
+        ensemble, device, pk, errors)
     pk.ab_pair_forces.launches = launches  # timing launches do not count
 
     g1 = timings["g1_seconds"]
@@ -568,10 +703,22 @@ def main():
     phase("rate", f"G1 share in the pair kernel: {min(share):.4f} to {max(share):.4f} "
                   "(its event time at the first and the last G1 structure times the steps)")
     phase("rate", f"peak device memory allocated: {peak_bytes / 2**20:.1f} MiB")
+    beads = REPLICAS * ensemble["n"]
+    et = ensemble["timings"]
+    for stage, key in (("relaxation", "relaxation"), ("G1", "g1")):
+        seconds, count = et[f"{key}_seconds"], et[f"{key}_steps"]
+        phase("rate", f"ensemble {stage}: {count / seconds:.2f} steps/s, "
+                      f"{count * beads / seconds:.4g} bead-steps/s for {REPLICAS} replicas "
+                      f"({beads} beads) over {count} steps ({seconds:.2f} s, host clock around "
+                      f"a synchronize); the single run's G1 in this call: {rate:.2f} steps/s, "
+                      f"{rate * n:.4g} bead-steps/s")
+    phase("rate", f"ensemble: peak device memory allocated "
+                  f"{ensemble['peak_bytes'] / 2**20:.1f} MiB")
     phase("rate", f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}, "
                   f"mean energy {ctx.mean_energy:.4f}")
 
     main_shape = timed["after G1"]
+    phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ab_pair_forces",
@@ -580,6 +727,7 @@ def main():
         "replaces": "genome_cycle_tpu/ops/pallas_kernels.py:109",
         "tpu": "ops/pallas_kernels.py::_kernel",
         "launches": launches,
+        "launches_ensemble": ensemble["launches"],
         "max_abs_err": errors.max_abs,
         "max_rel_err": errors.max_rel,
         "ms": main_shape["ms"],

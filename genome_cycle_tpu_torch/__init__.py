@@ -6,7 +6,8 @@ The JAX package beside this one is the reference; this package imports
 whole cell cycle on one device (prepare -> anaphase + telophase -> transition
 interphase -> relaxation + G1 -> transition prometaphase -> prometaphase ->
 transition cycle into the next cell), as the commands ``simulate`` and
-``cycles`` chain it.  Not ported yet: the ensemble and multi-device runs,
+``cycles`` chain it, and the interphase of an ensemble of replicas in
+lock-step on one device (``ensemble``).  Not ported yet: multi-device runs,
 the analysis tools and the bench.
 
 Layout (same module and function names as the JAX package):
@@ -19,6 +20,7 @@ Layout (same module and function names as the JAX package):
   plain version, contact search and window merge
 - :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, anatelophase,
   interphase, prometaphase
+- :mod:`genome_cycle_tpu_torch.parallel`  — the ensemble of replicas
 - :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays
 - :mod:`genome_cycle_tpu_torch.utils`     — splines, logging
 """

@@ -10,29 +10,32 @@ Usage (one trajectory file carries the whole cell cycle, SURVEY.md §3):
     python -m genome_cycle_tpu_torch.cli prometaphase [--device cpu] out.h5
     python -m genome_cycle_tpu_torch.cli simulate [--device cpu] [-s SEED] -o out.h5 config.json chains.tsv
     python -m genome_cycle_tpu_torch.cli cycles -n 3 [--device cpu] [-s SEED] -o prefix config.json chains.tsv
+    python -m genome_cycle_tpu_torch.cli ensemble -n 4 [--device cpu] [-s SEED] -o prefix config.json chains.tsv
 
 `simulate` = prepare + anatelophase + transition interphase + interphase
 (scripts/simulate:42-45).  `cycles` runs whole cell cycles one after another,
 one file ``<prefix>cell_<k>.h5`` each, seeded SEED + k; the target chromatids
-of a cycle's metaphase start the next cycle's anaphase.
+of a cycle's metaphase start the next cycle's anaphase.  `ensemble` prepares
+R replicas, one file ``<prefix>rep_<k>.h5`` each, seeded SEED + k, runs
+anatelophase and the transition in each, and then their interphase in
+lock-step (``parallel/ensemble.py``).
 
 The stages run on the first CUDA card; without one they fail unless
-``--device cpu`` is given.  The other commands of the JAX package's CLI
-(ensemble, the analysis tools) are not ported yet: they say so and exit
-non-zero.
+``--device cpu`` is given.  The analysis commands of the JAX package's CLI
+are not ported yet: they say so and exit non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from .store import SimulationStore
 from .utils.logging import log_stderr
 
 NOT_PORTED = (
-    "ensemble", "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd",
-    "analysis-help",
+    "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd", "analysis-help",
 )
 
 
@@ -101,6 +104,13 @@ def main(argv=None) -> int:
     p.add_argument("-n", "--cycles", type=int, default=3)
     _add_inputs(p, "--output-prefix", "output_prefix")
 
+    p = sub.add_parser(
+        "ensemble",
+        help="R replica interphase runs in lock-step, one trajectory file each",
+    )
+    p.add_argument("-n", "--replicas", type=int, default=4)
+    _add_inputs(p, "--output-prefix", "output_prefix")
+
     args = parser.parse_args(argv)
     log = log_stderr
 
@@ -160,6 +170,22 @@ def main(argv=None) -> int:
                 transitions.transition_prometaphase(store, log=log)
                 run_prometaphase(store, log=log, device=args.device)
             prev_path = path
+
+    elif args.command == "ensemble":
+        from .parallel.ensemble import run_ensemble_interphase
+
+        paths = [f"{args.output_prefix}rep_{k}.h5" for k in range(args.replicas)]
+        for k, path in enumerate(paths):
+            seed = None if args.seed is None else args.seed + k
+            log(f"=== replica {k}: {path} ===")
+            run_prepare(path, args.config, args.chains, seed, log=log)
+            with SimulationStore(path) as store:
+                run_anatelophase(store, log=log, device=args.device)
+                transitions.transition_interphase(store, log=log)
+        log(f"=== ensemble interphase: {args.replicas} replicas in lock-step ===")
+        with contextlib.ExitStack() as stack:
+            stores = [stack.enter_context(SimulationStore(path)) for path in paths]
+            run_ensemble_interphase(stores, log=log, device=args.device)
     return 0
 
 

@@ -68,3 +68,19 @@ def state_from_numpy(positions, semiaxes, seed: int = 0, device=None,
     x = torch.as_tensor(np.asarray(positions), dtype=dtype, device=device)
     a = torch.as_tensor(np.asarray(semiaxes), dtype=dtype, device=device)
     return (x, seeded_generator(seed, device), a)
+
+
+def ensemble_state_from_numpy(positions, semiaxes, seeds, device=None,
+                              dtype=torch.float32):
+    """The step state ``(x, generators, semiaxes)`` of R replicas from the
+    replicas' numpy positions (N, 3) and semiaxes (3,), stacked on a leading
+    axis: positions (R, N, 3), semiaxes (R, 3), and a generator on
+    ``device`` for each replica, seeded with its entry of ``seeds``."""
+    device = resolve_device(device)
+    x = torch.as_tensor(np.stack([np.asarray(p) for p in positions]), dtype=dtype, device=device)
+    a = torch.as_tensor(np.stack([np.asarray(s) for s in semiaxes]), dtype=dtype, device=device)
+    if x.dim() != 3 or a.shape != (x.shape[0], 3) or len(seeds) != x.shape[0]:
+        raise ValueError(
+            f"{x.shape[0]} replicas need positions (R, N, 3), semiaxes (R, 3) and R seeds"
+        )
+    return (x, [seeded_generator(seed, device) for seed in seeds], a)

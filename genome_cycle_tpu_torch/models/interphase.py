@@ -156,7 +156,12 @@ class InterphaseModel(nn.Module):
     for the interphase run.
 
     The step state is a tuple ``(x, generator, semiaxes)``: positions (N, 3),
-    a ``torch.Generator`` on the positions' device, wall semiaxes (3,).
+    a ``torch.Generator`` on the positions' device, wall semiaxes (3,).  The
+    same steps take R replicas of the system in lock-step
+    (``parallel/ensemble.py``): positions (R, N, 3), a sequence of R
+    generators, semiaxes (R, 3).  The replicas share one cell layout, and so
+    one launch of the pair kernel a step, and nothing else: each has its own
+    wall, noise and displacement limit.
     """
 
     def __init__(
@@ -270,7 +275,8 @@ class InterphaseModel(nn.Module):
         )
 
     def cell_layout(self, positions):
-        """Cell-sorted layout of the current positions on the model's grid."""
+        """Cell-sorted layout of the current positions (of one system or of
+        R replicas) on the model's grid."""
         return build_cell_layout(positions, self.af, self.bf, self.bound, self.cell)
 
     def bonded_forces(self, positions, bond_scale, with_energy=False):
@@ -339,7 +345,7 @@ class InterphaseModel(nn.Module):
     def pair_forces_full(self, positions, core_scale, with_energy=False):
         """A/B copolymer repulsion for the whole system: O(N^2) brute force
         at or below the threshold, the cell-range kernel above it.  Returns
-        (forces (N, 3), energy)."""
+        (forces of the positions' shape, energy)."""
         params = self._ab_params(core_scale)
         if self.n <= self.settings.brute_force_threshold:
             af, bf = self.af, self.bf
@@ -365,7 +371,7 @@ class InterphaseModel(nn.Module):
         forces, energy = ab_pair_forces(
             self.cell_layout(positions), kparams, with_energy
         )
-        return forces.to(positions.dtype), energy.to(positions.dtype)
+        return forces.reshape(positions.shape).to(positions.dtype), energy.to(positions.dtype)
 
     def wall_forces_rows(self, positions, semiaxes, core_scale):
         """Nuclear envelope; returns (forces, reaction, energy)."""
@@ -440,15 +446,54 @@ class InterphaseModel(nn.Module):
         ``contactmap_update_interval`` steps a full neighbor search at the
         *current* contact distance — the post-update positions and the core
         scale at ``step * dt`` — counts each in-range pair once
-        (contact_map.cpp:33-63).  Returns (E, 3) int32 rows [i, j, 1].
+        (contact_map.cpp:33-63).  Returns (E, 3) int32 rows [i, j, 1]; for
+        R replicas the ids are ``r * N + i`` and both beads of a row belong
+        to one replica.
         """
         c = self.config
         core_now, _ = self.scales(step * c.timestep)
         return contact_events(self.cell_layout(x), c.contactmap_distance * core_now)
 
+    def g1_chunk(self, carry, start: int, steps: int, window: "WindowAccumulator"):
+        """G1 steps ``start + 1`` to ``start + steps``, each tick's contact
+        events folded into ``window``.  Returns the new step state."""
+        tick = self.config.contactmap_update_interval
+        for step in range(start + 1, start + steps + 1):
+            carry = self._bd_step4(carry, step)
+            if step % tick == 0:
+                window.add(self.contact_events_tick(carry[0], step))
+        return carry
 
-def _default_acc_capacity(n: int) -> int:
-    return max(1 << 16, 16 * n)
+
+class WindowAccumulator:
+    """The contact window on the device: tick events fold into sorted COO
+    rows (``ops/contact.merge_events_acc``), and only the deduplicated window
+    moves to the host, once per dump.  When the rows run out, the buffer
+    grows past the watermark with headroom and the merge is run again."""
+
+    def __init__(self, particles: int, capacity: Optional[int], device, log=print):
+        self.capacity = capacity or max(1 << 16, 16 * particles)
+        self.device = device
+        self.log = log
+        self.acc, self.rows = empty_window_acc(self.capacity, device)
+
+    def add(self, events):
+        while True:
+            acc, rows, overflow = merge_events_acc(self.acc, self.rows, events)
+            if overflow == 0:
+                self.acc, self.rows = acc, rows
+                return
+            self.capacity = -(-int((self.capacity + overflow) * 3 // 2) // 4096) * 4096
+            self.log(f"engine: growing window accumulator to {self.capacity}")
+            grown, _ = empty_window_acc(self.capacity, self.device)
+            self.acc = torch.cat([self.acc, grown[self.acc.shape[0]:]])
+
+    def take(self) -> np.ndarray:
+        """The window's sorted (i, j, count) rows on the host; the window
+        starts afresh."""
+        coo = self.acc[: self.rows].cpu().numpy()
+        self.acc, self.rows = empty_window_acc(self.capacity, self.device)
+        return coo
 
 
 def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
@@ -537,7 +582,6 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
 
     sampling = c.sampling_interval
     window_steps = sampling * c.contactmap_output_window
-    tick = c.contactmap_update_interval
 
     # Intra-stage resume: a long G1 run snapshots its step state at contact
     # window boundaries; re-running the stage continues from the snapshot
@@ -590,11 +634,7 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
             0.0 - model.wall_spring * semiaxes
         )
 
-    # Window contacts accumulate ON DEVICE as sorted COO rows
-    # (ops/contact.merge_events_acc); only the deduplicated window moves to
-    # the host, once per dump boundary.
-    acc_capacity = settings.acc_capacity or _default_acc_capacity(n)
-    acc, acc_n = empty_window_acc(acc_capacity, device)
+    window = WindowAccumulator(n, settings.acc_capacity, device, log)
     state = (x, generator, semiaxes)
     t_g1 = clock()
     wall_t0 = _time.perf_counter()
@@ -603,30 +643,12 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     n_chunks = c.steps // sampling
     for chunk in range(resume_step // sampling, n_chunks):
         start = chunk * sampling
-        for step in range(start + 1, start + sampling + 1):
-            state = model._bd_step4(state, step)
-            if step % tick == 0:
-                events = model.contact_events_tick(state[0], step)
-                while True:
-                    acc2, acc_n2, acc_ov = merge_events_acc(acc, acc_n, events)
-                    if acc_ov > 0:
-                        # Size past the watermark with headroom and re-merge.
-                        acc_capacity = -(-int((acc_capacity + acc_ov) * 3 // 2) // 4096) * 4096
-                        log(f"engine: growing window accumulator to {acc_capacity}")
-                        grown, _ = empty_window_acc(acc_capacity, device)
-                        acc = torch.cat([acc, grown[acc.shape[0]:]])
-                        continue
-                    acc, acc_n = acc2, acc_n2
-                    break
+        state = model.g1_chunk(state, start, sampling, window)
         x, _, semiaxes = state
         refresh_bound(x)
         step = start + sampling
 
-        contacts_coo = None
-        if step % window_steps == 0:
-            # The accumulator IS the sorted (i, j, count) window COO.
-            contacts_coo = to_host(acc[:acc_n])
-            acc, acc_n = empty_window_acc(acc_capacity, device)
+        contacts_coo = window.take() if step % window_steps == 0 else None
 
         ctx = save_frame(step, x, semiaxes, contacts_coo)
         steps_done += sampling

@@ -8,7 +8,10 @@ their helpers skip the energy unless it is asked for and build no autograd
 graph.
 
 Force convention: each helper returns ``(forces, energy)`` where ``forces``
-has shape (N, 3) and accumulates -grad(U).
+has shape (N, 3) and accumulates -grad(U).  The interphase helpers
+(:func:`pair_bond_forces`, :func:`shift_bond_forces`) also take positions
+(R, N, 3) of R replicas of one topology: bonds index within a replica, and
+the energy is summed over all of them.
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ def pair_bond_forces(positions, pairs, energy_fn, coeff_fn):
     if pairs.shape[0] == 0:
         return forces, positions.new_zeros(())
     i, j = pairs[:, 0].long(), pairs[:, 1].long()
-    dx = positions[i] - positions[j]
+    dx = positions[..., i, :] - positions[..., j, :]
     r2 = torch.sum(dx * dx, dim=-1)
     energy = positions.new_zeros(()) if energy_fn is None else torch.sum(energy_fn(r2))
-    f = coeff_fn(r2)[:, None] * dx
-    forces.index_add_(0, i, f)
-    forces.index_add_(0, j, -f)
+    f = coeff_fn(r2)[..., None] * dx
+    forces.index_add_(-2, i, f)
+    forces.index_add_(-2, j, -f)
     return forces, energy
 
 
@@ -50,16 +53,17 @@ def shift_bond_forces(positions, offset, mask, energy_fn, coeff_fn):
     ``mask`` is (N,) bool: True where row i owns a bond to i + offset
     (False at chain tails, which also kills the rows whose roll wraps
     around); ``energy_fn``/``coeff_fn`` close over (N,)-row-aligned per-bond
-    parameters.
+    parameters.  The rolls run along the bead axis, so replicas of (R, N, 3)
+    positions never exchange a bond.
     """
-    dx = positions - torch.roll(positions, -offset, dims=0)
+    dx = positions - torch.roll(positions, -offset, dims=-2)
     r2 = torch.sum(dx * dx, dim=-1)
     u = energy_fn(r2)
     energy = torch.sum(torch.where(mask, u, torch.zeros_like(u)))
     c = coeff_fn(r2)
     c = torch.where(mask, c, torch.zeros_like(c))
-    f = c[:, None] * dx
-    forces = f - torch.roll(f, offset, dims=0)
+    f = c[..., None] * dx
+    forces = f - torch.roll(f, offset, dims=-2)
     return forces, energy
 
 

@@ -101,6 +101,25 @@ def merge_window(chunks) -> np.ndarray:
     return out
 
 
+def split_window(coo: np.ndarray, n: int, replicas: int) -> list:
+    """The window COO of R replicas of N beads (ids ``r * N + i``, rows
+    sorted by the packed key) as R windows in their own ids.
+
+    A row never joins two replicas, so the rows of replica r are the run with
+    ``r * N <= i < (r + 1) * N``; less ``r * N`` on both ids, they keep the
+    order of the packed key, and each is what :func:`merge_window` gives for
+    that replica's events alone.
+    """
+    coo = np.asarray(coo, dtype=np.int32).reshape(-1, 3)
+    cuts = np.searchsorted(coo[:, 0], np.arange(replicas + 1) * n)
+    windows = []
+    for r in range(replicas):
+        rows = coo[cuts[r]:cuts[r + 1]].copy()
+        rows[:, :2] -= r * n
+        windows.append(rows)
+    return windows
+
+
 def empty_window_acc(capacity: int, device="cpu"):
     """Fresh window accumulator on ``device``: (capacity, 3) int32 rows of
     [i, j, count] with the pad sentinel, plus the row count 0."""

@@ -31,22 +31,35 @@ class BDParams(NamedTuple):
 def bd_update(positions, forces, mobility, generator, params: BDParams, noise=None):
     """One Euler-Maruyama step; returns new positions.
 
-    ``noise`` (N, 3) replaces the generator's draw of standard normals, so
-    that a test can hand two implementations the same numbers.  No host
-    synchronisation: the displacement limit stays a tensor on the device.
+    ``positions`` (N, 3) with one ``generator``, or (R, N, 3) for R
+    independent replicas with a sequence of R generators: replica r draws
+    from its own, the numbers a single run with that generator draws, and the
+    displacement limit takes the largest drift of each replica apart.
+    ``noise`` replaces the draws of standard normals, so that a test can hand
+    two implementations the same numbers.  No host synchronisation: the
+    displacement limit stays a tensor on the device.
     """
     dt = params.timestep
     drift_vel = mobility[:, None] * forces  # mu F
     if params.spacestep is not None:
-        max_disp = torch.max(torch.linalg.norm(drift_vel, dim=-1)) * dt
+        max_disp = torch.linalg.norm(drift_vel, dim=-1).amax(dim=-1, keepdim=True) * dt
         scale = torch.clamp(
             params.spacestep / torch.clamp(max_disp, min=1e-30), max=1.0
         )
-        dt = dt * scale
+        dt = dt * scale                      # (..., 1): one step a replica
     sigma = torch.sqrt(2.0 * params.temperature * mobility * dt)
     if noise is None:
-        noise = torch.randn(
-            positions.shape, dtype=positions.dtype, device=positions.device,
-            generator=generator,
-        )
-    return positions + drift_vel * dt + sigma[:, None] * noise
+        if positions.dim() == 3:
+            noise = torch.stack([
+                torch.randn(positions.shape[1:], dtype=positions.dtype,
+                            device=positions.device, generator=g)
+                for g in generator
+            ])
+        else:
+            noise = torch.randn(
+                positions.shape, dtype=positions.dtype, device=positions.device,
+                generator=generator,
+            )
+    if torch.is_tensor(dt):
+        dt = dt[..., None]
+    return positions + drift_vel * dt + sigma[..., None] * noise

@@ -23,37 +23,41 @@ def pairwise_forces_dense(positions, coeff_fn, energy_fn=None, targets=None):
     ``j`` are broadcastable index tensors (rows, 1) and (1, m).  ``targets``
     optionally restricts interactions to a subset of particle indices
     (micromd ``set_neighbor_targets``, used by the nucleolar droplet force).
-    Returns (forces (N, 3), energy); energy is 0 without ``energy_fn``.
+    ``positions`` (R, N, 3) holds R replicas of one topology, each on its
+    own: pairs never join two replicas, and the energy is summed over all.
+    Returns (forces of the positions' shape, energy); energy is 0 without
+    ``energy_fn``.
     """
-    n = positions.shape[0]
+    n = positions.shape[-2]
     device = positions.device
     if targets is not None:
         ids = torch.as_tensor(targets, dtype=torch.long, device=device)
-        pos = positions[ids]
+        pos = positions[..., ids, :]
     else:
         ids = torch.arange(n, dtype=torch.long, device=device)
         pos = positions
-    m = pos.shape[0]
+    m = pos.shape[-2]
+    batch = pos.numel() // max(3 * m, 1)
     energy = positions.new_zeros(())
     f = torch.zeros_like(pos)
-    rows = max(1, min(m, _BLOCK_ELEMENTS // max(m, 1)))
+    rows = max(1, min(m, _BLOCK_ELEMENTS // max(m * batch, 1)))
     far = torch.as_tensor(1e30, dtype=positions.dtype, device=device)
     for r0 in range(0, m, rows):
         r1 = min(r0 + rows, m)
-        dx = pos[r0:r1, None, :] - pos[None, :, :]          # (rows, m, 3)
+        dx = pos[..., r0:r1, None, :] - pos[..., None, :, :]     # (..., rows, m, 3)
         r2 = torch.sum(dx * dx, dim=-1)
         valid = ids[r0:r1, None] != ids[None, :]
         r2 = torch.where(valid, r2, far)
         c = coeff_fn(r2, ids[r0:r1, None], ids[None, :])
         c = torch.where(valid, c, torch.zeros_like(c))
-        f[r0:r1] = torch.sum(c[:, :, None] * dx, dim=1)
+        f[..., r0:r1, :] = torch.sum(c[..., None] * dx, dim=-2)
         if energy_fn is not None:
             u = energy_fn(r2, ids[r0:r1, None], ids[None, :])
             energy = energy + 0.5 * torch.sum(
                 torch.where(valid, u, torch.zeros_like(u))
             )
     if targets is not None:
-        forces = torch.zeros_like(positions).index_add_(0, ids, f)
+        forces = torch.zeros_like(positions).index_add_(-2, ids, f)
     else:
         forces = f
     return forces, energy

@@ -11,7 +11,9 @@ Three parts:
 
 - :func:`build_cell_layout` — plain torch, runs on either device: beads sorted
   by flat cell id, a cell being the range ``[cell_start[c], cell_start[c+1])``
-  of that order.  No per-cell capacity, so nothing overflows.
+  of that order.  No per-cell capacity, so nothing overflows.  R replicas of
+  one topology share one layout, cubes side by side along x, and so one
+  launch of the kernel.
 - :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
   hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
   takes the plain version.  It never falls back on the card.  (The source
@@ -34,23 +36,39 @@ from . import _build
 
 
 class CellLayout(NamedTuple):
-    """Beads in cell-sorted order over a cubic grid (z runs fastest)."""
+    """Beads in cell-sorted order over a grid of ``shape`` cells (z runs
+    fastest).
 
-    cell: float                # cell edge; the grid starts at -bound on every axis
-    dims: int                  # cells per axis
-    order: torch.Tensor        # (N,) int64: sorted index -> original bead id
-    cell_id: torch.Tensor      # (N,) int32 flat cell id, ascending
-    cell_start: torch.Tensor   # (dims^3 + 1,) int32 range starts
-    xyz: torch.Tensor          # (N, 4) f32 x, y, z, 0 in sorted order
-    ab: torch.Tensor           # (N, 2) f32 a, b factors in sorted order
+    One system fills a cube of ``dims`` cells per axis.  R replicas lie side
+    by side along x, replica r in the cube of cells whose x index runs from
+    ``r * (dims + 1)``, so that a column of empty cells separates neighbouring
+    replicas: no stencil reaches from one into the next.  A bead's id is then
+    ``r * N + i`` for bead i of replica r, and every replica's beads keep
+    their relative order in the sorted order.
+    """
+
+    cell: float                # cell edge; each replica's cube starts at -bound on every axis
+    dims: int                  # cells per axis of one replica's cube
+    order: torch.Tensor        # (R N,) int64: sorted index -> bead id
+    cell_id: torch.Tensor      # (R N,) int32 flat cell id, ascending
+    cell_start: torch.Tensor   # (cells + 1,) int32 range starts
+    xyz: torch.Tensor          # (R N, 4) f32 x, y, z, 0 in sorted order
+    ab: torch.Tensor           # (R N, 2) f32 a, b factors in sorted order
+    replicas: int = 1          # R
 
     @property
     def n(self) -> int:
         return self.order.shape[0]
 
     @property
+    def shape(self) -> tuple:
+        """Cells along x, y and z."""
+        return (self.replicas * (self.dims + 1) - 1, self.dims, self.dims)
+
+    @property
     def num_cells(self) -> int:
-        return self.dims ** 3
+        nx, ny, nz = self.shape
+        return nx * ny * nz
 
 
 def grid_dims(bound: float, cell: float) -> int:
@@ -61,28 +79,38 @@ def grid_dims(bound: float, cell: float) -> int:
 def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayout:
     """Sort beads into the cells of the cubic grid over [-bound, bound]^3.
 
-    Beads outside the grid are clipped into the edge cells; clipping is
-    monotone per axis, so two beads closer than one cell still land in the
-    same or in neighbouring cells and keep interacting.  No host
-    synchronisation.
+    ``positions`` is (N, 3), or (R, N, 3) for R replicas of one topology
+    (``af``, ``bf`` of length N), which get a cube each, side by side along x
+    (see :class:`CellLayout`).  Beads outside the grid are clipped into the
+    edge cells of their own replica's cube; clipping is monotone per axis, so
+    two beads closer than one cell still land in the same or in neighbouring
+    cells and keep interacting.  No host synchronisation.
     """
     dims = grid_dims(bound, cell)
-    if dims ** 3 >= 2 ** 31 - 1:
-        raise ValueError(f"grid of {dims}^3 cells does not fit 32-bit cell ids")
-    lower = -float(bound)
     x = positions.to(torch.float32)
+    replicas = x.shape[0] if x.dim() == 3 else 1
+    nx = replicas * (dims + 1) - 1
+    if nx * dims * dims >= 2 ** 31 - 1:
+        raise ValueError(f"grid of {nx} x {dims}^2 cells does not fit 32-bit cell ids")
+    lower = -float(bound)
     coords = torch.floor((x - lower) / cell).to(torch.int64).clamp_(0, dims - 1)
+    if x.dim() == 3:
+        # Clipped into its own cube first, then moved to it.
+        offsets = (dims + 1) * torch.arange(replicas, device=x.device)
+        coords[..., 0] += offsets[:, None]
+        coords, x = coords.reshape(-1, 3), x.reshape(-1, 3)
     flat = (coords[:, 0] * dims + coords[:, 1]) * dims + coords[:, 2]
     sorted_flat, order = torch.sort(flat, stable=True)
-    edges = torch.arange(dims ** 3 + 1, device=x.device, dtype=torch.int64)
+    edges = torch.arange(nx * dims * dims + 1, device=x.device, dtype=torch.int64)
     cell_start = torch.searchsorted(sorted_flat, edges).to(torch.int32)
     xyz = torch.zeros((x.shape[0], 4), dtype=torch.float32, device=x.device)
     xyz[:, :3] = x[order]
-    ab = torch.stack([af[order], bf[order]], dim=1).to(torch.float32).contiguous()
+    bead = order if replicas == 1 else order % af.shape[0]
+    ab = torch.stack([af[bead], bf[bead]], dim=1).to(torch.float32).contiguous()
     return CellLayout(
         cell=float(cell), dims=dims, order=order,
         cell_id=sorted_flat.to(torch.int32), cell_start=cell_start,
-        xyz=xyz, ab=ab,
+        xyz=xyz, ab=ab, replicas=replicas,
     )
 
 
@@ -96,21 +124,21 @@ def stencil_ranges(layout: CellLayout, half: bool = False):
     own are yielded (5 ranges): every unordered pair then appears from its
     lower sorted index only, given the filter ``j > i`` on the own column.
     """
-    d = layout.dims
+    nx, ny, nz = layout.shape
     c = layout.cell_id.to(torch.int64)
-    cz = c % d
-    cy = (c // d) % d
-    cx = c // (d * d)
+    cz = c % nz
+    cy = (c // nz) % ny
+    cx = c // (nz * ny)
     starts = layout.cell_start.to(torch.int64)
-    z_hi = torch.clamp(cz + 1, max=d - 1)
+    z_hi = torch.clamp(cz + 1, max=nz - 1)
     for ox in (-1, 0, 1):
         for oy in (-1, 0, 1):
             if half and (ox, oy) < (0, 0):
                 continue
             z_lo = cz if half and (ox, oy) == (0, 0) else torch.clamp(cz - 1, min=0)
             x, y = cx + ox, cy + oy
-            inside = (x >= 0) & (x < d) & (y >= 0) & (y < d)
-            column = (x.clamp(0, d - 1) * d + y.clamp(0, d - 1)) * d
+            inside = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
+            column = (x.clamp(0, nx - 1) * ny + y.clamp(0, ny - 1)) * nz
             start = starts[column + z_lo]
             count = starts[column + z_hi + 1] - start
             yield start, torch.where(inside, count, torch.zeros_like(count))
@@ -282,7 +310,7 @@ def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False):
         pointers.append(layout.order.data_ptr())
     with torch.cuda.device(device):
         status = launch(
-            *pointers, n, layout.dims, layout.dims, layout.dims,
+            *pointers, n, *layout.shape,
             e_a, inv_da2, e_b, inv_db2,
             forces.data_ptr(), per_bead.data_ptr() if with_energy else None,
             torch.cuda.current_stream().cuda_stream,
@@ -296,8 +324,10 @@ def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
     """A/B pair force (and optionally its energy) over a cell layout.
 
     ``params`` = [e_a, 1/d_a^2, e_b, 1/d_b^2] as Python floats, passed to the
-    kernel by value.  Returns (forces (N, 3) in original bead order, energy
-    scalar tensor; zero unless ``with_energy``).
+    kernel by value.  Returns (forces (N, 3) in bead-id order, energy scalar
+    tensor over all beads; zero unless ``with_energy``).  On a layout of R
+    replicas N counts the beads of all of them, and the forces reshape to
+    (R, N / R, 3).
 
     A CUDA layout goes to the kernel of ``csrc/ab_pair_forces.cu``, launched
     on the current stream without synchronising; anything that keeps it from

@@ -34,10 +34,12 @@ from . import potentials
 def wall_energy(positions, semiaxes, a_mix, b_mix, params):
     """Total wall energy.
 
-    ``a_mix``/``b_mix``: per-particle mixed weights (a_i + wall_a)/2 and
-    (b_i + wall_b)/2.  ``params``: dict with ``a_energy``, ``a_diameter``,
-    ``b_energy``, ``b_diameter`` (HALF core diameters, pre-scaled by
-    core_scale) and ``packing_spring``.
+    ``positions`` (N, 3) with ``semiaxes`` (3,), or R replicas: (R, N, 3)
+    with (R, 3), each replica in its own wall.  ``a_mix``/``b_mix``:
+    per-particle mixed weights (a_i + wall_a)/2 and (b_i + wall_b)/2.
+    ``params``: dict with ``a_energy``, ``a_diameter``, ``b_energy``,
+    ``b_diameter`` (HALF core diameters, pre-scaled by core_scale) and
+    ``packing_spring``.
 
     ``eps`` keeps both radicands away from zero, so the gradient is finite
     for a bead at the origin; both branches of the final ``where`` are
@@ -47,7 +49,7 @@ def wall_energy(positions, semiaxes, a_mix, b_mix, params):
     eps = 1e-12
     x2 = positions * positions
     r2 = torch.sum(x2, dim=-1) + eps
-    s2 = torch.sum(x2 / (semiaxes * semiaxes)[None, :], dim=-1) + eps
+    s2 = torch.sum(x2 / (semiaxes * semiaxes)[..., None, :], dim=-1) + eps
     # R(direction) = |x| / s: radius of the ellipsoid along the particle's ray.
     d = torch.sqrt(r2 / s2) - torch.sqrt(r2)  # signed distance, >0 inside
     d2 = d * d
@@ -59,7 +61,11 @@ def wall_energy(positions, semiaxes, a_mix, b_mix, params):
 
 
 def wall_forces(positions, semiaxes, a_mix, b_mix, params):
-    """Returns (forces (N,3), axial_reaction (3,), energy), all detached."""
+    """Returns (forces (N,3), axial_reaction (3,), energy), all detached.
+
+    For R replicas, (R, N, 3) forces and an (R, 3) reaction: the energy is
+    summed over the replicas, and since replica r's term depends on its own
+    semiaxes only, row r of the gradient is replica r's reaction."""
     with torch.enable_grad():
         x = positions.detach().requires_grad_(True)
         a = semiaxes.detach().requires_grad_(True)

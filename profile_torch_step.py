@@ -12,7 +12,9 @@ whole step, a contact tick and a window merge the same way.  A
 ``torch.profiler`` window over whole steps gives the device's busy share and
 the device time by kernel name.  The steps of the three mitotic phases (576
 coarse beads, 1,152 with sisters) are timed and profiled the same way, for
-their launches a step.  Prints one JSON object and writes it to
+their launches a step, and so is the G1 step of an ensemble of R = 1, 2, 4 and
+8 replicas of the nucleus in lock-step (one launch of the pair kernel a step
+for all of them).  Prints one JSON object and writes it to
 ``DIR/profile_torch_step.json`` (default ``build/profile``).  Needs a CUDA card.
 """
 
@@ -128,6 +130,45 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
     return result
 
 
+def ensemble_steps(model, x, semiaxes, step0, repeats, replica_counts=(1, 2, 4, 8)):
+    """Host-clock milliseconds, launches, busy share and the pair kernel's
+    share of the device time of one G1 step of R replicas in lock-step, for
+    each R.  Every replica starts from the profiled G1 structure with a
+    generator of its own; 20 steps separate them before the timing."""
+    from genome_cycle_tpu_torch import convert
+
+    result = {}
+    for replicas in replica_counts:
+        state = convert.ensemble_state_from_numpy(
+            [x.cpu().numpy()] * replicas, [semiaxes.cpu().numpy()] * replicas,
+            seeds=range(1, replicas + 1), device=x.device)
+        step = step0
+
+        def one_step():
+            nonlocal state, step
+            step += 1
+            state = model._bd_step4(state, step)
+
+        for _ in range(20):
+            one_step()
+        step_ms = host_ms(one_step, repeats)
+        window = profile_window(one_step, 50, step_ms)
+        by_kernel = window.pop("by_kernel")
+        pair_ms = sum(v[0] for name, v in by_kernel.items() if "ab_pair_forces" in name)
+        result[str(replicas)] = {
+            "beads": replicas * model.n, "step_ms": step_ms,
+            "steps_per_second": 1e3 / step_ms,
+            "bead_steps_per_second": replicas * model.n * 1e3 / step_ms, **window,
+            "pair_kernel_device_ms": pair_ms,
+            "pair_kernel_share_of_device_time": pair_ms / window["device_busy_ms"],
+            "pair_kernel_launches_per_step": sum(
+                v[1] for name, v in by_kernel.items() if "ab_pair_forces" in name) / 50,
+        }
+        del state
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--relax-steps", type=int, default=500)
@@ -206,6 +247,7 @@ def main():
     g1_window = profile_window(whole_step, 50, step_ms)
     by_kernel = g1_window.pop("by_kernel")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    ensemble = ensemble_steps(model, state[0], state[2], step0, n)
     mitotic = mitotic_steps(store, config, state[0], device, n)
 
     tick_every = c.contactmap_update_interval
@@ -233,6 +275,7 @@ def main():
                 [name[:90], round(ms, 3), count] for name, (ms, count) in top
             ],
         },
+        "ensemble_g1_steps": ensemble,
         "mitotic_steps": mitotic,
     }
     text = json.dumps(result, indent=1)

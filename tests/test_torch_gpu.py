@@ -1,5 +1,6 @@
-"""The CUDA pair-force kernels against their plain version, on the card, and
-the interphase step through the kernel against the C++ surrogate.
+"""The CUDA pair-force kernels against their plain version, on the card, also
+on a layout of several replicas; an ensemble run on the card; and the
+interphase step through the kernel against the C++ surrogate.
 
 These tests need a CUDA card and ``nvcc`` and skip where there is none.  The
 file imports only torch and the port, so that it also runs on a machine
@@ -130,6 +131,90 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         shifted = torch.zeros((101, 2), device=cuda_device).view(-1)[1:-1].view(100, 2)
         pk.ab_pair_forces(layout._replace(ab=shifted), _kparams(1.0))
+
+
+def _stacked_beads(replicas, n=3000, seed=13):
+    """R replicas of n beads, a few of each beyond the grid's bound."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.9, 0.9, (replicas, n, 3)).astype(np.float32)
+    x[:, :20] *= 1.6
+    af = rng.uniform(0, 1, n).astype(np.float32)
+    return x, af, (1.0 - af).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_on_stacked_replicas_matches_plain_and_single_launches(cuda_device):
+    """One launch for three replicas side by side: as the plain version on
+    the same layout, and as three launches, one a replica on its own."""
+    x, af, bf = (torch.as_tensor(v, device=cuda_device) for v in _stacked_beads(3))
+    stacked = pk.build_cell_layout(x, af, bf, 1.2, 0.3)
+    assert stacked.shape == (26, 8, 8)
+    kparams = _kparams(1.0)
+    before = pk.ab_pair_forces.launches
+    f, e = pk.ab_pair_forces(stacked, kparams, with_energy=True)
+    torch.cuda.synchronize()
+    assert pk.ab_pair_forces.launches == before + 1
+    _assert_matches_plain(stacked, kparams, f, e)
+    f = f.reshape(x.shape)
+    for r in range(3):
+        single, e_r = pk.ab_pair_forces(pk.build_cell_layout(x[r], af, bf, 1.2, 0.3), kparams, True)
+        torch.cuda.synchronize()
+        assert float((f[r] - single).abs().max()) <= 1e-4 * max(float(single.abs().max()), 1.0)
+
+
+def _ensemble_stores(tmp_path, device, replicas=2):
+    """Prepared stores of a 600-bead two-chain system, through a short
+    anatelophase and the transition, for an ensemble run."""
+    import json
+
+    from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
+    from genome_cycle_tpu_torch.models.prepare import run_prepare
+    from genome_cycle_tpu_torch.models.transitions import transition_interphase
+    from genome_cycle_tpu_torch.store import MemoryStore
+
+    config = {
+        "mitotic_phase": {"coarse_graining": 10, "anaphase_steps": 2000,
+                          "telophase_steps": 4000, "sampling_interval": 1000},
+        "interphase": {"steps": 80, "relaxation_steps": 40, "sampling_interval": 20,
+                       "relaxation_sampling_interval": 20, "logging_interval": 40,
+                       "contactmap_output_window": 2},
+    }
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    rows = ["chain\tstart\tend\tA\tB\ttags"]
+    for name in ("chr1:a", "chr2:a"):
+        for i in range(300):
+            tag = "cen,B" if 140 <= i < 160 else ("A" if i % 2 else "B")
+            a, b = (1, 0) if tag == "A" else (0, 1)
+            rows.append(f"{name}\t{i * 100000}\t{(i + 1) * 100000}\t{a}\t{b}\t{tag}")
+    (tmp_path / "chains.tsv").write_text("\n".join(rows) + "\n")
+    stores = []
+    for k in range(replicas):
+        store = MemoryStore()
+        run_prepare(store, str(tmp_path / "config.json"), str(tmp_path / "chains.tsv"),
+                    seed=20 + k, log=lambda m: None)
+        run_anatelophase(store, log=lambda m: None, device=device)
+        transition_interphase(store, log=lambda m: None)
+        stores.append(store)
+    return stores
+
+
+@pytest.mark.gpu
+def test_cuda_ensemble_launches_the_kernel_once_a_step(cuda_device, tmp_path):
+    from genome_cycle_tpu_torch.models.interphase import EngineSettings
+    from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
+
+    stores = _ensemble_stores(tmp_path, cuda_device)
+    before = pk.ab_pair_forces.launches
+    final = run_ensemble_interphase(
+        stores, settings=EngineSettings(brute_force_threshold=0), log=lambda m: None,
+        device=cuda_device)
+    assert pk.ab_pair_forces.launches - before == 40 + 80     # relaxation + G1 steps
+    assert final.shape == (2, 600, 3) and np.isfinite(final).all()
+    assert np.abs(final[0] - final[1]).max() > 1e-2
+    for store in stores:
+        store.set_stage("interphase")
+        assert store.load_steps() == [0, 20, 40, 60, 80]
+        assert store.load_contacts(80) is not None
 
 
 @pytest.mark.gpu

@@ -16,6 +16,7 @@ MODULES = [
     "genome_cycle_tpu_torch.models.transitions",
     "genome_cycle_tpu_torch.ops.bonded",
     "genome_cycle_tpu_torch.ops.pair_kernels",
+    "genome_cycle_tpu_torch.parallel.ensemble",
     # The scripts at the root that run the port on a card.
     "chip_smoke",
     "profile_torch_step",
@@ -45,7 +46,7 @@ def test_cli_refuses_unported_commands_and_default_device(tmp_path):
     code = (
         "import sys\n"
         "from genome_cycle_tpu_torch import cli, default_device\n"
-        "assert cli.main(['ensemble', '-o', 'x_', 'c.json', 'c.tsv']) != 0\n"
+        "assert cli.main(['nci', '-o', 'x_', 'c.json', 'c.tsv']) != 0\n"
         "assert cli.main(['cool', 'x.h5']) != 0\n"
         "import torch\n"
         "if not torch.cuda.is_available():\n"
@@ -61,7 +62,7 @@ def test_cli_refuses_unported_commands_and_default_device(tmp_path):
 
 
 @pytest.mark.parametrize("command", [
-    ["anatelophase"], ["prometaphase"], ["interphase"], ["simulate"], ["cycles"],
+    ["anatelophase"], ["prometaphase"], ["interphase"], ["simulate"], ["cycles"], ["ensemble"],
     ["transition", "interphase"], ["transition", "prometaphase"], ["transition", "cycle"],
 ])
 def test_cli_offers_the_stage_commands(command, capsys):
@@ -76,17 +77,18 @@ def test_cli_offers_the_stage_commands(command, capsys):
 
 
 def test_cli_parses_the_composed_commands():
-    """``simulate`` and ``cycles`` take the JAX CLI's arguments plus --device;
+    """``simulate``, ``cycles`` and ``ensemble`` take the JAX CLI's arguments plus --device;
     a wrong one is refused by the parser, before anything runs."""
     from genome_cycle_tpu_torch import cli
 
     for argv in (["simulate", "-o", "x.h5", "config.json"],
                  ["cycles", "-n", "two", "-o", "x_", "config.json", "chains.tsv"],
+                 ["ensemble", "-n", "4", "config.json", "chains.tsv"],
                  ["transition", "cycle", "prev.h5"],
                  ["transition", "metaphase", "x.h5"]):
         with pytest.raises(SystemExit) as exit_info:
             cli.main(argv)
         assert exit_info.value.code == 2
     assert set(cli.NOT_PORTED) == {
-        "ensemble", "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd", "analysis-help",
+        "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd", "analysis-help",
     }
