@@ -31,22 +31,36 @@ prints no result.  It
    a step for all four, holds the kernel on the replica-stacked layout against
    its plain version and against four single-replica launches, and times it
    against them in turns;
-7. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
+7. phase "analysis": the analysis chain on the ensemble's contact windows, on
+   the card — ``cool`` over the four replicas (59,610 bins), ICE,
+   ``dephase`` (30,860 haploid bins), ICE, the dense float32 haploid map,
+   O/E and PC1 — each step held against the same function on the host (PC1
+   on the first three chromosomes' block), timed, the power step against its
+   bound;
+8. phase "gate": the port's statistical gate against the C++ surrogate
+   (``tests/test_torch_correlation.py``, both configurations, each replica
+   set in one stacked run through the kernel; the surrogate built with
+   ``g++``);
+9. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 """
 
+import io
 import json
 import os
+import pathlib
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
+import pandas as pd
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -79,6 +93,17 @@ CONFIG_ENSEMBLE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 
 SEED = 1
 EXPECTED_PARTICLES = 59610
 EXPECTED_COARSE = 576
+# hg38 at 100 kb: one canonical copy of each of 24 chromosomes.
+EXPECTED_HAPLOID_BINS = 30860
+
+# Limits of the analysis phase, the card against the host.  Pixels must be
+# equal.  ICE weights: float64 sums in another order (relative 1e-9), or a
+# round apart at the stopping test (tol 1e-5: 1e-5).  PC1: float32 products
+# in another order, the iteration stopping at 1e-4 (one step apart at most).
+ANALYSIS_WEIGHT_RTOL = 1e-9
+ANALYSIS_WEIGHT_RTOL_APART = 1e-5
+ANALYSIS_PC1_TOLERANCE = 1e-3
+ANALYSIS_MARGINAL_SPREAD = 0.01
 
 # Limits of the mitotic checks.
 BOND_LENGTH_BAND = 0.2        # mean chain-bond length within bond_length +- 20 %
@@ -458,14 +483,13 @@ def run_ensemble(workdir, device, run_log):
         phase("ensemble", f"replica {k}: frames, windows, positions and semiaxes are sound; "
                           f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}")
         finals.append(x_final)
-        store.close()
     apart = min(float(np.abs(finals[a] - finals[b]).max())
                 for a in range(REPLICAS) for b in range(a))
     phase("ensemble", f"final positions of any two replicas differ by up to {apart:.4f} at least")
     if not apart > 1e-2:
         fail("ensemble", "two replicas ended in the same structure")
     return dict(final=np.stack(finals), launches=launches, peak_bytes=peak_bytes,
-                timings=timings, config=config, n=n, design=design)
+                timings=timings, config=config, n=n, design=design, stores=stores)
 
 
 def check_ensemble_kernel(ensemble, device, pk, errors):
@@ -519,6 +543,255 @@ def check_ensemble_kernel(ensemble, device, pk, errors):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 cells=stacked.num_cells, beads=stacked.n, replicas=REPLICAS,
                 max_abs_diff_single=diff, launches=ensemble["launches"])
+
+
+def synchronized(fn):
+    """``fn()`` and its host-clock seconds, the card synchronised on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chrom_ranges(bins):
+    """{chrom: (first bin, end)} in the order of the bin table, as
+    ``Cooler.extent`` gives them for a file written from it."""
+    names = list(dict.fromkeys(bins["chrom"].astype(str)))
+    ids = bins["chrom"].astype(str).map({name: k for k, name in enumerate(names)}).to_numpy()
+    offsets = np.searchsorted(ids, np.arange(len(names) + 1))
+    return {name: (int(offsets[k]), int(offsets[k + 1])) for k, name in enumerate(names)}
+
+
+def balanced_spread(b1, b2, counts, weights):
+    """std/mean of the balanced marginals over the unmasked bins (a masked
+    bin's NaN weight counts as 0, as ``nansum`` over the balanced map)."""
+    w = torch.nan_to_num(weights.to(b1.device), nan=0.0)
+    values = counts.double() * w[b1] * w[b2]
+    marg = torch.zeros(len(w), dtype=torch.float64, device=b1.device)
+    marg.index_add_(0, b1, values)
+    marg.index_add_(0, b2, values * (b1 != b2))
+    marg = marg[torch.isfinite(weights.to(b1.device))]
+    return float(marg.std(unbiased=False) / marg.mean())
+
+
+def check_weights(name, got, want, rounds, want_rounds):
+    """ICE weights on the card against the host's: the same masked bins,
+    relative ANALYSIS_WEIGHT_RTOL when both took the same number of rounds,
+    ANALYSIS_WEIGHT_RTOL_APART when they stopped a round apart."""
+    got, want = got.cpu().numpy(), want.numpy()
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        fail("analysis", f"{name}: the card and the host mask other bins")
+    ok = np.isfinite(want)
+    rel = float(np.max(np.abs(got[ok] - want[ok]) / np.abs(want[ok]))) if ok.any() else 0.0
+    limit = ANALYSIS_WEIGHT_RTOL if rounds == want_rounds else ANALYSIS_WEIGHT_RTOL_APART
+    phase("analysis", f"{name}: {rounds} rounds on the card, {want_rounds} on the host; "
+                      f"{int(ok.sum())} of {len(ok)} bins unmasked; weights max relative "
+                      f"difference {rel:.3e} (limit {limit})")
+    if abs(rounds - want_rounds) > 1 or not rel <= limit:
+        fail("analysis", f"{name}: ICE weights differ from the host's")
+
+
+def run_analysis(stores, device, card):
+    """Phase "analysis": the chain a user runs after an ensemble, ``cool``
+    over all replicas -> ICE -> ``dephase`` -> ICE -> the dense haploid map
+    -> O/E and PC1, on the card, from the replicas' stores (their contact
+    windows, no file in between).  Each step is held against the same
+    function on the host; PC1 on the haploid block of the first three
+    chromosomes.  Returns the numbers the summary prints."""
+    from genome_cycle_tpu_torch.analysis import cool, coolio, dephase, pc1
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("analysis", "TF32 is on: the power step must run in float32")
+    cpu = torch.device("cpu")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+
+    (bins, b1, b2, counts), seconds["cool"] = synchronized(
+        lambda: cool.contact_pixels(stores, device=device))
+    n = len(bins)
+    if n != EXPECTED_PARTICLES:
+        fail("analysis", f"{n} bins, expected {EXPECTED_PARTICLES}")
+    host = cool.contact_pixels(stores, device=cpu)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip((b1, b2, counts), host[1:])):
+        fail("analysis", "merged pixels differ between the card and the host")
+    phase("analysis", f"cool: {len(stores)} replicas, {n} bins, {len(b1)} pixels, "
+                      f"{int(counts.sum())} contacts; equal to the host's merge")
+
+    ice = {}
+    weights, seconds["ice"] = synchronized(
+        lambda: coolio.ice_weights(b1, b2, counts, n, stats=ice))
+    host_ice = {}
+    check_weights("ICE, diploid", weights,
+                  coolio.ice_weights(*host[1:], n, stats=host_ice),
+                  ice["rounds"], host_ice["rounds"])
+    spreads = [balanced_spread(b1, b2, counts, weights)]
+
+    hap_bins, projection = dephase.project_bins(bins)
+    nh = len(hap_bins)
+    if nh != EXPECTED_HAPLOID_BINS:
+        fail("analysis", f"{nh} haploid bins, expected {EXPECTED_HAPLOID_BINS}")
+
+    def dephased(pixels, where):
+        chunk = dephase.dephase_pixels(*pixels, projection)
+        return coolio.merge_pixels([chunk], nh, where)
+
+    (h1, h2, hcounts), seconds["dephase"] = synchronized(
+        lambda: dephased((b1, b2, counts), device))
+    host_hap = dephased(host[1:], cpu)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip((h1, h2, hcounts), host_hap)):
+        fail("analysis", "dephased pixels differ between the card and the host")
+    phase("analysis", f"dephase: {n} -> {nh} bins, {len(h1)} pixels; equal to the host's")
+    del b1, b2, counts, host
+
+    hap_ice = {}
+    hweights, seconds["ice_haploid"] = synchronized(
+        lambda: coolio.ice_weights(h1, h2, hcounts, nh, stats=hap_ice))
+    host_hap_ice = {}
+    check_weights("ICE, haploid", hweights,
+                  coolio.ice_weights(*host_hap, nh, stats=host_hap_ice),
+                  hap_ice["rounds"], host_hap_ice["rounds"])
+    spreads.append(balanced_spread(h1, h2, hcounts, hweights))
+    phase("analysis", f"balanced marginals over the unmasked bins, std/mean: diploid "
+                      f"{spreads[0]:.3e}, haploid {spreads[1]:.3e} "
+                      f"(limit {ANALYSIS_MARGINAL_SPREAD})")
+    if not max(spreads) < ANALYSIS_MARGINAL_SPREAD:
+        fail("analysis", "the balanced marginals are not flat")
+
+    matrix, seconds["dense"] = synchronized(lambda: coolio.dense_matrix(
+        h1, h2, hcounts, (0, nh), (0, nh), hweights, torch.float32))
+    ranges = chrom_ranges(hap_bins)
+    block_end = list(ranges.values())[2][1]
+    block = matrix[:block_end, :block_end].clone()
+    phase("analysis", f"dense haploid map: {tuple(matrix.shape)} float32, "
+                      f"{matrix.numel() * 4 / 1e9:.2f} GB")
+
+    pc_timings = {}
+    (pc, ev1, evr, _), seconds["pc1"] = synchronized(
+        lambda: pc1.compute_pc1(matrix, ranges, timings=pc_timings))
+    del matrix
+    peak = torch.cuda.max_memory_allocated()
+    kept = pc_timings["kept"]
+    ev1_host = ev1.cpu().numpy()
+    pc_host = pc.cpu().numpy()
+    keep = np.isfinite(ev1_host)
+    norm = float(np.linalg.norm(ev1_host[keep]))
+    phase("analysis", f"pc1: {kept} of {nh} columns kept, {pc_timings['power_steps']} power "
+                      f"steps (final delta {pc_timings['power_delta']:.2e}), explained variance "
+                      f"ratio {evr:.6f}, |ev1| over the kept bins {norm:.8f}")
+    if not (0 < evr <= 1 and abs(norm - 1) <= 1e-5 and np.isfinite(pc_host[keep]).all()):
+        fail("analysis", "PC1 out of its bounds (0 < evr <= 1, |ev1| = 1, finite)")
+
+    # PC1 of the first three chromosomes' block, card against host.
+    block_ranges = dict(list(ranges.items())[:3])
+    got_t, want_t = {}, {}
+    got = pc1.compute_pc1(block, block_ranges, timings=got_t)
+    want = pc1.compute_pc1(block.cpu(), block_ranges, timings=want_t)
+    d_ev1, d_pc1, d_evr = analysis_differences(got, want)
+    phase("analysis", f"pc1 of {', '.join(block_ranges)} ({block_end} bins): card and host "
+                      f"differ by {d_ev1:.2e} in ev1, {d_pc1:.2e} of max|pc1| in pc1, "
+                      f"{d_evr:.2e} relative in evr; {got_t['power_steps']} and "
+                      f"{want_t['power_steps']} power steps (limit {ANALYSIS_PC1_TOLERANCE}, "
+                      "steps one apart)")
+    if (max(d_ev1, d_pc1, d_evr) > ANALYSIS_PC1_TOLERANCE
+            or abs(got_t["power_steps"] - want_t["power_steps"]) > 1):
+        fail("analysis", "PC1 on the card differs from the host's")
+
+    # The chains' A - B factor of each haploid bin, averaged over its copies.
+    chains = pd.read_csv(io.StringIO(stores[0].load_chains_source()), sep="\t")
+    ab = np.zeros(n)
+    ab[:len(chains)] = (chains["A"] - chains["B"]).to_numpy()[:n]
+    mapped = projection >= 0
+    ab_hap = (np.bincount(projection[mapped], weights=ab[mapped], minlength=nh)
+              / np.maximum(np.bincount(projection[mapped], minlength=nh), 1))
+    ok = keep & np.isfinite(pc_host)
+    corr = abs(float(np.corrcoef(pc_host[ok], ab_hap[ok])[0, 1]))
+    phase("analysis", f"|corr(PC1, A - B of the chains)| over the kept bins: {corr:.4f} "
+                      "(no threshold: a run this short need not form compartments)")
+
+    step_ms = pc_timings["power_seconds"] / pc_timings["power_steps"] * 1e3
+    bound_ms = 2 * 4 * nh * kept / PEAK_BYTES_PER_S * 1e3
+    # The step's two products apart, on a matrix of the same shape: D v
+    # reads rows, Dᵀ w the same memory through the transpose.
+    probe = torch.randn(nh, kept, device=device)
+    v, w = torch.randn(kept, device=device), torch.randn(nh, device=device)
+    mv_ms = time_ms(lambda: torch.mv(probe, v), 20)
+    mv_t_ms = time_ms(lambda: torch.mv(probe.T, w), 20)
+    del probe
+    for name, label in (("cool", "cool (merge)"), ("ice", "ICE, diploid"),
+                        ("dephase", "dephase (gather + merge)"), ("ice_haploid", "ICE, haploid"),
+                        ("dense", "dense haploid map"), ("pc1", "O/E + PC1")):
+        phase("time", f"analysis {label}: {seconds[name] * 1e3:.1f} ms (host clock around a "
+                      "synchronize)")
+    phase("time", f"analysis power step: {step_ms:.4f} ms over {pc_timings['power_steps']} "
+                  f"steps, bound {bound_ms:.4f} ms (2 x 4 x {nh} x {kept} bytes / 3.35 TB/s; "
+                  f"{bound_ms / step_ms:.3f} of it); peak device memory of the phase "
+                  f"{peak / 2**20:.1f} MiB; {card}")
+    phase("time", f"analysis power step's products alone (CUDA events, 20 launches): D v "
+                  f"{mv_ms:.4f} ms, D^T w {mv_t_ms:.4f} ms, each bound "
+                  f"{bound_ms / 2:.4f} ms")
+    return dict(seconds=seconds, bins=n, haploid_bins=nh, pixels=len(h1), kept=kept,
+                ice_rounds=(ice["rounds"], hap_ice["rounds"]),
+                power_steps=pc_timings["power_steps"], power_step_ms=step_ms,
+                power_bound_ms=bound_ms, mv_ms=mv_ms, mv_t_ms=mv_t_ms, peak_bytes=peak,
+                evr=evr, ab_corr=corr)
+
+
+def analysis_differences(got, want):
+    """Card against host PC1 results: max|d ev1| (sign-aligned unit
+    vectors), max|d pc1| over max|pc1|, |d evr| over evr."""
+    ev1, ev1_want = got[1].cpu().numpy(), want[1].numpy()
+    pc, pc_want = got[0].cpu().numpy(), want[0].numpy()
+    ok = np.isfinite(ev1_want)
+    if not np.array_equal(np.isfinite(ev1), ok):
+        fail("analysis", "PC1 on the card keeps other columns than the host's")
+    sign = 1.0 if np.dot(ev1[ok], ev1_want[ok]) >= 0 else -1.0
+    return (float(np.abs(sign * ev1[ok] - ev1_want[ok]).max()),
+            float(np.abs(sign * pc - pc_want).max() / np.abs(pc_want).max()),
+            abs(got[2] - want[2]) / want[2])
+
+
+def run_gate(device, pk):
+    """Phase "gate": the port's statistical gate against the C++ surrogate
+    (``tests/test_torch_correlation.py``), both configurations, each as one
+    stacked run of all its replicas through the kernel, with the surrogate
+    built by ``g++`` into ``build/``.  Returns the gated numbers."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        fail("gate", "no g++ to build the C++ surrogate")
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    phase("gate", f"g++: {version}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_correlation as gate
+    from genome_cycle_tpu_torch.ops import _build
+
+    exe = _build.build_dir() / "surrogate_ref"
+    exe.parent.mkdir(parents=True, exist_ok=True)
+    gate.build_surrogate(exe)
+    results = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    try:
+        for name, run in (("chain", gate.contact_map_gate), ("nucleolus", gate.nucleolus_gate)):
+            before = pk.ab_pair_forces.launches
+            try:
+                numbers, seconds = synchronized(
+                    lambda: run(exe, pathlib.Path(tempfile.mkdtemp(dir=workdir)), device))
+            except AssertionError:
+                fail("gate", f"{name}: {traceback.format_exc().splitlines()[-2].strip()}")
+            launches = pk.ab_pair_forces.launches - before
+            phase("gate", f"{name}: " + ", ".join(f"{k} {v:.5g}" for k, v in numbers.items())
+                          + f"; {launches} kernel launches for {gate.STEPS} steps of "
+                          f"{gate.REPLICAS if name == 'chain' else gate.NUC_REPLICAS} "
+                          f"replicas; {seconds:.1f} s, surrogate runs included")
+            if launches != gate.STEPS:
+                fail("gate", f"{name}: {launches} launches, not one a step for all replicas")
+            results[name] = dict(numbers, seconds=seconds, launches=launches)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return results
 
 
 def main():
@@ -624,6 +897,11 @@ def main():
         # ---- 6. the ensemble: four replicas in lock-step ---------------------
         phase("depth", f"ensemble of {REPLICAS}: {json.dumps(CONFIG_ENSEMBLE)}")
         ensemble = run_ensemble(workdir, device, run_log)
+
+        # ---- 7. the analysis chain on the ensemble's windows ----------------
+        analysis = run_analysis(ensemble["stores"], device, card)
+        for replica in ensemble.pop("stores"):
+            replica.close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -717,8 +995,14 @@ def main():
     phase("rate", f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}, "
                   f"mean energy {ctx.mean_energy:.4f}")
 
+    # ---- 8. the statistical gate through the kernel -------------------------
+    gate = run_gate(device, pk)
+    pk.ab_pair_forces.launches = launches  # the gate's launches do not count
+
     main_shape = timed["after G1"]
-    phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s")
+    phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s "
+                  f"(phase analysis {sum(analysis['seconds'].values()):.1f} s on the card, "
+                  f"gate {gate['chain']['seconds'] + gate['nucleolus']['seconds']:.1f} s)")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ab_pair_forces",

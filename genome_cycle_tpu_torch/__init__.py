@@ -6,9 +6,10 @@ The JAX package beside this one is the reference; this package imports
 whole cell cycle on one device (prepare -> anaphase + telophase -> transition
 interphase -> relaxation + G1 -> transition prometaphase -> prometaphase ->
 transition cycle into the next cell), as the commands ``simulate`` and
-``cycles`` chain it, and the interphase of an ensemble of replicas in
-lock-step on one device (``ensemble``).  Not ported yet: multi-device runs,
-the analysis tools and the bench.
+``cycles`` chain it, the interphase of an ensemble of replicas in
+lock-step on one device (``ensemble``), and the analysis tools, with the
+contact-map and compartment numerics on the device.  Not ported yet:
+multi-device runs and the bench.
 
 Layout (same module and function names as the JAX package):
 
@@ -21,6 +22,8 @@ Layout (same module and function names as the JAX package):
 - :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, anatelophase,
   interphase, prometaphase
 - :mod:`genome_cycle_tpu_torch.parallel`  — the ensemble of replicas
+- :mod:`genome_cycle_tpu_torch.analysis`  — cool, dephase, pc1 (on the device),
+  nci, annotate, dumpgsd and their helpers
 - :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays
 - :mod:`genome_cycle_tpu_torch.utils`     — splines, logging
 """

@@ -6,11 +6,15 @@ Usage (one trajectory file carries the whole cell cycle, SURVEY.md §3):
     python -m genome_cycle_tpu_torch.cli anatelophase [--device cpu] out.h5
     python -m genome_cycle_tpu_torch.cli transition {interphase|prometaphase} out.h5
     python -m genome_cycle_tpu_torch.cli transition cycle prev.h5 next.h5
-    python -m genome_cycle_tpu_torch.cli interphase [--device cpu] out.h5
+    python -m genome_cycle_tpu_torch.cli interphase [--device cpu] [--profile DIR] out.h5
     python -m genome_cycle_tpu_torch.cli prometaphase [--device cpu] out.h5
     python -m genome_cycle_tpu_torch.cli simulate [--device cpu] [-s SEED] -o out.h5 config.json chains.tsv
     python -m genome_cycle_tpu_torch.cli cycles -n 3 [--device cpu] [-s SEED] -o prefix config.json chains.tsv
     python -m genome_cycle_tpu_torch.cli ensemble -n 4 [--device cpu] [-s SEED] -o prefix config.json chains.tsv
+    python -m genome_cycle_tpu_torch.cli cool [--device cpu] --output sim.cool rep_0.h5 rep_1.h5 ...
+    python -m genome_cycle_tpu_torch.cli dephase [--device cpu] --output haploid.cool sim.cool
+    python -m genome_cycle_tpu_torch.cli pc1 [--device cpu] --output pc1.tsv [--aux-output aux.json] haploid.cool
+    python -m genome_cycle_tpu_torch.cli {nci|annotate|dumpgsd} ...   (as the JAX package's)
 
 `simulate` = prepare + anatelophase + transition interphase + interphase
 (scripts/simulate:42-45).  `cycles` runs whole cell cycles one after another,
@@ -20,9 +24,11 @@ R replicas, one file ``<prefix>rep_<k>.h5`` each, seeded SEED + k, runs
 anatelophase and the transition in each, and then their interphase in
 lock-step (``parallel/ensemble.py``).
 
-The stages run on the first CUDA card; without one they fail unless
-``--device cpu`` is given.  The analysis commands of the JAX package's CLI
-are not ported yet: they say so and exit non-zero.
+The stages and the analysis commands with device work (``cool``,
+``dephase``, ``pc1``) run on the first CUDA card; without one they fail
+unless ``--device cpu`` is given.  ``nci``, ``annotate`` and ``dumpgsd`` are
+host code and take the JAX package's arguments.  ``interphase --profile DIR``
+writes a ``torch.profiler`` trace of the run (chrome trace format) into DIR.
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ import sys
 from .store import SimulationStore
 from .utils.logging import log_stderr
 
-NOT_PORTED = (
-    "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd", "analysis-help",
-)
+ANALYSIS_COMMANDS = {
+    "nci": "genome_cycle_tpu_torch.analysis.nci",
+    "annotate": "genome_cycle_tpu_torch.analysis.annotate",
+    "cool": "genome_cycle_tpu_torch.analysis.cool",
+    "dephase": "genome_cycle_tpu_torch.analysis.dephase",
+    "pc1": "genome_cycle_tpu_torch.analysis.pc1",
+    "dumpgsd": "genome_cycle_tpu_torch.analysis.dumpgsd",
+}
 
 
 def _add_store_cmd(sub, name, help_text, device=False):
@@ -63,15 +74,50 @@ def _add_inputs(p, output_name, output_dest):
     p.add_argument("chains")
 
 
+@contextlib.contextmanager
+def _profiled(directory, device):
+    """A ``torch.profiler`` trace of the block into ``directory`` (the
+    host's operators and, on a CUDA device, the card's kernels), written as
+    ``trace.json``; nothing when ``directory`` is None."""
+    if directory is None:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import resolve_device
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] in NOT_PORTED:
-        log_stderr(
-            f"genome_cycle_tpu_torch: '{argv[0]}' is not ported yet; "
-            "use the genome_cycle_tpu CLI for it"
-        )
-        return 2
+    # The analysis tools keep their own argparse CLIs; forward to them.
+    if argv and argv[0] in ANALYSIS_COMMANDS:
+        import importlib
+        import logging
+
+        from .analysis.common import invoke_main
+
+        module = importlib.import_module(ANALYSIS_COMMANDS[argv[0]])
+        old_argv = sys.argv
+        sys.argv = list(argv)
+        try:
+            invoke_main(module.main, module.parse_args(), logging.getLogger())
+        finally:
+            sys.argv = old_argv
+        return 0
 
     parser = argparse.ArgumentParser(
         prog="genome_cycle_tpu_torch",
@@ -86,7 +132,12 @@ def main(argv=None) -> int:
     p.add_argument("chains")
 
     _add_store_cmd(sub, "anatelophase", "run anaphase + telophase", device=True)
-    _add_store_cmd(sub, "interphase", "run relaxation + G1 interphase", device=True)
+    p = _add_store_cmd(sub, "interphase", "run relaxation + G1 interphase", device=True)
+    p.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="write a torch.profiler trace of the run into DIR (chrome trace "
+        "format; view in chrome://tracing or Perfetto)",
+    )
     _add_store_cmd(sub, "prometaphase", "run prometaphase/metaphase", device=True)
 
     p = sub.add_parser("transition", help="convert structures between stages")
@@ -111,6 +162,11 @@ def main(argv=None) -> int:
     p.add_argument("-n", "--replicas", type=int, default=4)
     _add_inputs(p, "--output-prefix", "output_prefix")
 
+    sub.add_parser(
+        "analysis-help",
+        help="analysis tools: " + ", ".join(ANALYSIS_COMMANDS),
+    )
+
     args = parser.parse_args(argv)
     log = log_stderr
 
@@ -128,7 +184,7 @@ def main(argv=None) -> int:
             run_anatelophase(store, log=log, device=args.device)
 
     elif args.command == "interphase":
-        with SimulationStore(args.trajectory) as store:
+        with _profiled(args.profile, args.device), SimulationStore(args.trajectory) as store:
             run_interphase(store, log=log, device=args.device)
 
     elif args.command == "prometaphase":
@@ -186,6 +242,10 @@ def main(argv=None) -> int:
         with contextlib.ExitStack() as stack:
             stores = [stack.enter_context(SimulationStore(path)) for path in paths]
             run_ensemble_interphase(stores, log=log, device=args.device)
+
+    elif args.command == "analysis-help":
+        print("analysis tools: " + ", ".join(ANALYSIS_COMMANDS)
+              + " (each takes --help)")
     return 0
 
 

@@ -11,12 +11,17 @@ must match within the tolerances of the JAX gate: 10 % (25 % for the
 nucleolar droplet's), 0.15 in log10 per octave of P(s).
 
 The port runs its production formulation: the cell-range pair force and the
-contact tick over the sorted layout (``brute_force_threshold=0``), on the CPU
-through the plain versions.  The nucleolus-bearing variant of the gate is in
-tests/test_torch_correlation_nucleolus.py, a file of its own so that the two
-run side by side.  This file imports neither JAX nor the JAX package, so
-tests/test_torch_gpu.py can run the same gate through the CUDA kernel on a
-machine that has only torch.
+contact tick over the sorted layout (``brute_force_threshold=0``).  Its
+replicas run side by side in one lock-step run (a generator each, seeded as
+the single run would be), so on a card one kernel launch a step serves them
+all; the surrogate's replicas run as processes of their own, at once.
+
+The gate itself is carried by ``chip_smoke.py`` (phase "gate"), through the
+CUDA kernel, and by ``tests/test_torch_gpu.py``; its CPU runs here take
+minutes and are marked ``slow``.  The nucleolus-bearing variant
+(:func:`nucleolus_gate`) has its test in
+tests/test_torch_correlation_nucleolus.py.  This file imports neither JAX nor
+the JAX package, so the card's machine can run it with only torch.
 """
 
 import json
@@ -30,7 +35,7 @@ import torch
 from genome_cycle_tpu_torch import convert
 from genome_cycle_tpu_torch.config import parse_config
 from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
-from genome_cycle_tpu_torch.ops.contact import events_to_host, merge_window
+from genome_cycle_tpu_torch.ops.contact import events_to_host, merge_window, split_window
 from genome_cycle_tpu_torch.store import StageDesign
 from genome_cycle_tpu_torch.topology import ChainAssignment
 
@@ -51,9 +56,9 @@ N_SITES = 6  # -> 12 nucleolar particles (2 per active NOR, config default)
 NUC_REPLICAS = 4
 
 
-@pytest.fixture(scope="module")
-def surrogate_exe(tmp_path_factory):
-    exe = tmp_path_factory.mktemp("native") / "surrogate_ref"
+def build_surrogate(exe):
+    """Compile ``genome_cycle_tpu/native/surrogate_ref.cpp`` into ``exe``
+    with ``g++``."""
     src = REPO / "genome_cycle_tpu" / "native" / "surrogate_ref.cpp"
     subprocess.run(
         ["g++", "-O2", "-march=native", "-funsafe-math-optimizations",
@@ -61,6 +66,11 @@ def surrogate_exe(tmp_path_factory):
         check=True, capture_output=True,
     )
     return exe
+
+
+@pytest.fixture(scope="module")
+def surrogate_exe(tmp_path_factory):
+    return build_surrogate(tmp_path_factory.mktemp("native") / "surrogate_ref")
 
 
 def walk_init(n, chains, radius=0.8, bond_rms=0.1, seed=11):
@@ -131,14 +141,19 @@ def dense_map(coo, n):
     return m
 
 
-def run_port_engine(x0, seed, device, n_sites=0):
-    """STEPS G1 steps of the port from ``x0``; contacts of the ticks after the
-    burn-in, merged.  Returns (coo, bond <r^2>, Rg, final positions)."""
+def run_port_engine(x0, seeds, device, n_sites=0):
+    """STEPS G1 steps of the port from ``x0`` for one replica a seed, all
+    in one lock-step run (one generator a replica, seeded as a single run
+    would be); each replica's contacts of the ticks after the burn-in,
+    merged.  Returns a (coo, bond <r^2>, Rg, final positions) tuple a
+    replica."""
     model = make_model(device, n_sites)
-    assert model.n == len(x0) and model.use_droplet == (n_sites > 0)
+    n, replicas = len(x0), len(seeds)
+    assert model.n == n and model.use_droplet == (n_sites > 0)
     assert model.n > model.settings.brute_force_threshold       # the cell-range path
     tick = model.config.contactmap_update_interval
-    state = convert.state_from_numpy(x0, [2.0, 2.0, 2.0], seed=seed, device=device)
+    state = convert.ensemble_state_from_numpy(
+        [x0] * replicas, [[2.0, 2.0, 2.0]] * replicas, seeds, device=device)
     window = []
     for step in range(1, STEPS + 1):
         state = model._bd_step4(state, step)
@@ -146,48 +161,66 @@ def run_port_engine(x0, seed, device, n_sites=0):
             window.append(events_to_host(model.contact_events_tick(state[0], step)))
         if step % CHUNK == 0:
             model.update_bound(float(state[0].abs().max()))
-    coo = merge_window(window)
-    x_final = state[0].cpu().numpy()
+    windows = split_window(merge_window(window), n, replicas)
     per = N // CHAINS
-    bonds = np.concatenate([
-        np.sum(np.diff(x_final[c * per: (c + 1) * per], axis=0) ** 2, axis=1)
-        for c in range(CHAINS)
-    ])
-    center = x_final.mean(axis=0)
-    rg = float(np.sqrt(np.mean(np.sum((x_final - center) ** 2, axis=1))))
-    return coo, float(bonds.mean()), rg, x_final
+    out = []
+    for coo, x_final in zip(windows, state[0].cpu().numpy()):
+        bonds = np.concatenate([
+            np.sum(np.diff(x_final[c * per: (c + 1) * per], axis=0) ** 2, axis=1)
+            for c in range(CHAINS)
+        ])
+        center = x_final.mean(axis=0)
+        rg = float(np.sqrt(np.mean(np.sum((x_final - center) ** 2, axis=1))))
+        out.append((coo, float(bonds.mean()), rg, x_final))
+    return out
 
 
-def run_surrogate(exe, x0, tmp_path, seed, n_sites=0):
+def run_surrogates(exe, x0, tmp_path, seeds, n_sites=0):
+    """One surrogate run a seed, all at once (a process each); returns a
+    (coo, stats) pair a seed."""
     init = tmp_path / "init.txt"
     np.savetxt(init, x0, fmt="%.7f")
-    out = tmp_path / "ref_contacts.tsv"
-    proc = subprocess.run(
-        [str(exe), str(init), str(len(x0)), str(CHAINS), str(STEPS),
-         str(BURNIN), str(seed), str(out), str(n_sites)],
-        check=True, capture_output=True, text=True, timeout=600,
-    )
-    stats = json.loads(proc.stdout.strip())
-    data = np.loadtxt(out, dtype=np.int64).reshape(-1, 3)
-    return data, stats
+    runs = []
+    for seed in seeds:
+        out = tmp_path / f"ref_contacts_{seed}.tsv"
+        proc = subprocess.Popen(
+            [str(exe), str(init), str(len(x0)), str(CHAINS), str(STEPS),
+             str(BURNIN), str(seed), str(out), str(n_sites)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        runs.append((proc, out))
+    results = []
+    try:
+        for proc, out in runs:
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"surrogate run failed ({proc.returncode}): {stderr}")
+            data = np.loadtxt(out, dtype=np.int64).reshape(-1, 3)
+            results.append((data, json.loads(stdout.strip())))
+    finally:
+        for proc, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
 
 
 def contact_map_gate(surrogate_exe, tmp_path, device):
-    """The gate of the chain-only system; shared with the card's test."""
+    """The gate of the chain-only system; shared with the card's test and
+    ``chip_smoke.py``.  Asserts; returns the gated numbers."""
     x0 = walk_init(N, CHAINS)
 
     ref_map = np.zeros((N, N))
     ref_bonds, ref_rgs = [], []
-    for s in range(REPLICAS):
-        coo, stats = run_surrogate(surrogate_exe, x0, tmp_path, 4242 + s)
+    for coo, stats in run_surrogates(surrogate_exe, x0, tmp_path,
+                                     [4242 + s for s in range(REPLICAS)]):
         ref_map += dense_map(coo, N)
         ref_bonds.append(stats["bond_r2_mean"])
         ref_rgs.append(stats["rg"])
 
     port_map = np.zeros((N, N))
     port_bonds, port_rgs = [], []
-    for s in range(REPLICAS):
-        coo, bond_r2, rg, _ = run_port_engine(x0, 777 + s, device)
+    for coo, bond_r2, rg, _ in run_port_engine(x0, [777 + s for s in range(REPLICAS)], device):
         port_map += dense_map(coo, N)
         port_bonds.append(bond_r2)
         port_rgs.append(rg)
@@ -226,8 +259,62 @@ def contact_map_gate(surrogate_exe, tmp_path, device):
     dev = np.abs(np.log10(ref_oct[both]) - np.log10(port_oct[both]))
     print(f"P(s) octave curve: max |dlog10| = {dev.max():.4f} over {both.sum()} octaves")
     assert both.sum() >= 4 and dev.max() <= 0.15
+    return dict(r=r, event_ratio=float(total_ratio),
+                bond_r2_ref=float(np.mean(ref_bonds)), bond_r2_port=float(np.mean(port_bonds)),
+                rg_ref=float(np.mean(ref_rgs)), rg_port=float(np.mean(port_rgs)),
+                ps_max_dlog10=float(dev.max()))
 
 
+def nucleolus_gate(surrogate_exe, tmp_path, device):
+    """The nucleolus-bearing configuration through the same gate: NOR
+    semispring bonds, the softwell droplet and the (0, 10) nucleolar a/b
+    factors are live in both engines; besides the map, the droplet's radius of
+    gyration and the NOR-bond length are gated.  Shared with ``chip_smoke.py``.
+    Asserts; returns the gated numbers."""
+    x0 = with_nucleoli(walk_init(N, CHAINS))
+    n_tot = len(x0)
+    sites = np.asarray(nor_sites(N_SITES)).repeat(2)
+
+    ref_map = np.zeros((n_tot, n_tot))
+    ref_nuc_rg, ref_nuc_bond = [], []
+    for coo, stats in run_surrogates(surrogate_exe, x0, tmp_path,
+                                     [5252 + s for s in range(NUC_REPLICAS)], n_sites=N_SITES):
+        ref_map += dense_map(coo, n_tot)
+        ref_nuc_rg.append(stats["nuc_rg"])
+        ref_nuc_bond.append(stats["nuc_bond_r2_mean"])
+
+    port_map = np.zeros((n_tot, n_tot))
+    port_nuc_rg, port_nuc_bond = [], []
+    for coo, _, _, x_final in run_port_engine(
+            x0, [888 + s for s in range(NUC_REPLICAS)], device, n_sites=N_SITES):
+        port_map += dense_map(coo, n_tot)
+        nuc = x_final[N:]
+        c = nuc.mean(axis=0)
+        port_nuc_rg.append(float(np.sqrt(np.mean(np.sum((nuc - c) ** 2, 1)))))
+        port_nuc_bond.append(float(np.mean(np.sum((x_final[sites] - nuc) ** 2, axis=1))))
+
+    iu, ju = np.triu_indices(n_tot, k=1)
+    r = float(np.corrcoef(ref_map[iu, ju], port_map[iu, ju])[0, 1])
+    ratio = port_map.sum() / max(ref_map.sum(), 1)
+    print(f"nucleolus gate: map r = {r:.4f}, event ratio {ratio:.3f}")
+    assert r >= 0.95
+    assert 0.85 < ratio < 1.15
+
+    # Droplet clustering: without the softwell the nucleolar Rg tracks the
+    # NOR spread, several-fold larger.
+    rr, pr = float(np.mean(ref_nuc_rg)), float(np.mean(port_nuc_rg))
+    print(f"nucleolar Rg: ref={rr:.4f} port={pr:.4f}")
+    assert pr == pytest.approx(rr, rel=0.25)
+
+    # NOR-bond stretch equilibrium.
+    rb, pb = float(np.mean(ref_nuc_bond)), float(np.mean(port_nuc_bond))
+    print(f"NOR-bond <r^2>: ref={rb:.5f} port={pb:.5f}")
+    assert pb == pytest.approx(rb, rel=0.25)
+    return dict(r=r, event_ratio=float(ratio), nuc_rg_ref=rr, nuc_rg_port=pr,
+                nor_bond_r2_ref=rb, nor_bond_r2_port=pb)
+
+
+@pytest.mark.slow
 def test_contact_map_pearson_vs_surrogate(surrogate_exe, tmp_path):
     contact_map_gate(surrogate_exe, tmp_path, "cpu")
 

@@ -1,6 +1,7 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
-on a layout of several replicas; an ensemble run on the card; and the
-interphase step through the kernel against the C++ surrogate.
+on a layout of several replicas; an ensemble run on the card; the
+interphase step through the kernel against the C++ surrogate; and the
+analysis chain's device numerics on the card against the host.
 
 These tests need a CUDA card and ``nvcc`` and skip where there is none.  The
 file imports only torch and the port, so that it also runs on a machine
@@ -221,7 +222,60 @@ def test_cuda_ensemble_launches_the_kernel_once_a_step(cuda_device, tmp_path):
 def test_contact_map_pearson_vs_surrogate_through_the_kernel(
         cuda_device, surrogate_exe, tmp_path):  # noqa: F811
     """The gate of tests/test_torch_correlation.py with the port's steps on
-    the card: every pair force comes from the CUDA kernel."""
+    the card: every pair force comes from the CUDA kernel, one launch a step
+    for all the replicas."""
     before = pk.ab_pair_forces.launches
     gate.contact_map_gate(surrogate_exe, tmp_path, cuda_device)
-    assert pk.ab_pair_forces.launches - before == gate.REPLICAS * gate.STEPS
+    assert pk.ab_pair_forces.launches - before == gate.STEPS
+
+
+@pytest.mark.gpu
+def test_analysis_numerics_on_the_card_match_the_host(cuda_device):
+    """The analysis chain's device functions on the card against the same
+    functions on the host: pixel merge and dephase equal, ICE weights to
+    float64 rounding (or a round apart: 1e-5), the dense balanced map
+    equal, PC1 sign-aligned within 1e-4 with the power step in true
+    float32 (TF32 off, the default)."""
+    import pandas as pd
+
+    from genome_cycle_tpu_torch.analysis import coolio, dephase, pc1
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    rng = np.random.default_rng(31)
+    names = [f"chr{c}:{copy}" for copy in "ab" for c in (1, 2, 3)]
+    sizes = [120, 90, 70] * 2
+    bins = pd.DataFrame([(name, i * 100, (i + 1) * 100) for name, size in zip(names, sizes)
+                         for i in range(size)], columns=["chrom", "start", "end"])
+    n = len(bins)
+    i = rng.integers(0, n, 200_000)
+    j = np.clip(i + rng.geometric(0.05, 200_000) * rng.choice([-1, 1], 200_000), 0, n - 1)
+    chunk = {"bin1_id": i, "bin2_id": j, "count": rng.integers(1, 4, 200_000)}
+    merged = [coolio.merge_pixels([chunk], n, where) for where in (cuda_device, "cpu")]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(*merged))
+    stats = [{}, {}]
+    weights = [coolio.ice_weights(*px, n, stats=st) for px, st in zip(merged, stats)]
+    assert abs(stats[0]["rounds"] - stats[1]["rounds"]) <= 1
+    rtol = 1e-9 if stats[0]["rounds"] == stats[1]["rounds"] else 1e-5
+    np.testing.assert_allclose(weights[0].cpu().numpy(), weights[1].numpy(), rtol=rtol,
+                               equal_nan=True)
+    hap_bins, projection = dephase.project_bins(bins)
+    hap = [coolio.merge_pixels([dephase.dephase_pixels(*px, projection)], len(hap_bins), where)
+           for px, where in zip(merged, (cuda_device, "cpu"))]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(*hap))
+    nh = len(hap_bins)
+    hw = coolio.ice_weights(*hap[1], nh)
+    dense = [coolio.dense_matrix(*px, (0, nh), (0, nh), hw.to(px[0].device), torch.float32)
+             for px in hap]
+    np.testing.assert_array_equal(dense[0].cpu().numpy(), dense[1].numpy())   # NaN rows too
+    ranges = {"chr1": (0, 120), "chr2": (120, 210), "chr3": (210, 280)}
+    got_t, want_t = {}, {}
+    got = pc1.compute_pc1(dense[0], ranges, timings=got_t)
+    want = pc1.compute_pc1(dense[1], ranges, timings=want_t)
+    assert abs(got_t["power_steps"] - want_t["power_steps"]) <= 1
+    ev1, ev1_want = got[1].cpu().numpy(), want[1].numpy()
+    ok = np.isfinite(ev1_want)
+    np.testing.assert_array_equal(np.isfinite(ev1), ok)
+    sign = 1.0 if np.dot(ev1[ok], ev1_want[ok]) >= 0 else -1.0
+    np.testing.assert_allclose(sign * ev1[ok], ev1_want[ok], atol=1e-4)
+    np.testing.assert_allclose(sign * got[0].cpu().numpy(), want[0].numpy(), atol=1e-4)
+    assert got[2] == pytest.approx(want[2], rel=1e-4)

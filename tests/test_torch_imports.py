@@ -1,5 +1,7 @@
-"""The port imports torch, never jax and nothing of the JAX package."""
+"""The port imports torch, never jax and nothing of the JAX package; and its
+CLI offers every command of the JAX package's."""
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -17,6 +19,16 @@ MODULES = [
     "genome_cycle_tpu_torch.ops.bonded",
     "genome_cycle_tpu_torch.ops.pair_kernels",
     "genome_cycle_tpu_torch.parallel.ensemble",
+    "genome_cycle_tpu_torch.analysis.common",
+    "genome_cycle_tpu_torch.analysis.coolio",
+    "genome_cycle_tpu_torch.analysis.cool",
+    "genome_cycle_tpu_torch.analysis.dephase",
+    "genome_cycle_tpu_torch.analysis.pc1",
+    "genome_cycle_tpu_torch.analysis.nci",
+    "genome_cycle_tpu_torch.analysis.cyto",
+    "genome_cycle_tpu_torch.analysis.annotate",
+    "genome_cycle_tpu_torch.analysis.gsdio",
+    "genome_cycle_tpu_torch.analysis.dumpgsd",
     # The scripts at the root that run the port on a card.
     "chip_smoke",
     "profile_torch_step",
@@ -24,40 +36,106 @@ MODULES = [
 ]
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
+# Prints, after each module named on the command line is imported, which
+# forbidden modules are loaded; stops at the first import that fails.
+_CHECK = """
+import importlib, json, sys
+
+def forbidden():
+    bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+                 or m == 'jaxlib' or m == 'genome_cycle_tpu'
+                 or m.startswith('genome_cycle_tpu.'))
+    bad += [m for m in ('h5py', 'triton') if m in sys.modules]
+    return bad
+
+for name in sys.argv[1:]:
+    try:
+        importlib.import_module(name)
+    except BaseException as err:
+        print(json.dumps([name, repr(err)]), flush=True)
+        break
+    print(json.dumps([name, forbidden()]), flush=True)
+"""
+
+
+def _imports(modules):
+    """{module: [] if clean, else what went wrong} for the modules imported
+    in turn into one fresh interpreter, up to the first that is not clean."""
+    proc = subprocess.run([sys.executable, "-c", _CHECK, *modules],
+                          capture_output=True, text=True, cwd=ROOT)
+    verdicts = dict(json.loads(line) for line in proc.stdout.splitlines() if line.startswith("["))
+    if len(verdicts) < len(modules) and all(v == [] for v in verdicts.values()):
+        verdicts[modules[len(verdicts)]] = proc.stderr[-2000:]
+    return verdicts
+
+
+@pytest.fixture(scope="module")
+def shared_imports():
+    """One interpreter imports every module in turn.  A module whose import
+    leaves nothing forbidden loaded would leave nothing forbidden when
+    imported alone (what it pulls in is a subset of what is loaded), so its
+    case is settled here; from the first module after which something
+    forbidden is loaded, each case imports its module in a fresh interpreter
+    of its own."""
+    verdicts = _imports(MODULES)
+    return {name: True for name, bad in verdicts.items() if bad == []}
+
 
 @pytest.mark.parametrize("module", MODULES)
-def test_import_pulls_in_no_jax(module):
-    code = (
-        f"import sys, {module}\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'jaxlib' or m == 'genome_cycle_tpu'"
-        " or m.startswith('genome_cycle_tpu.'))\n"
-        "assert not bad, bad\n"
-        "assert 'h5py' not in sys.modules, 'h5py imported at module import'\n"
-        "assert 'triton' not in sys.modules\n"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT
-    )
-    assert proc.returncode == 0, proc.stderr
+def test_import_pulls_in_no_jax(module, shared_imports):
+    if shared_imports.get(module):
+        return
+    bad = _imports([module]).get(module, "no verdict")
+    assert bad == [], f"{module}: {bad}"
 
 
-def test_cli_refuses_unported_commands_and_default_device(tmp_path):
+def test_analysis_commands_dispatch_and_default_device(tmp_path):
+    """Every analysis command reaches its tool: ``--help`` of each exits 0
+    and names its flags; ``cool``, ``dephase`` and ``pc1`` offer --device
+    and, without a card and without ``--device cpu``, raise before they
+    write anything; ``analysis-help`` lists the tools."""
     code = (
-        "import sys\n"
-        "from genome_cycle_tpu_torch import cli, default_device\n"
-        "assert cli.main(['nci', '-o', 'x_', 'c.json', 'c.tsv']) != 0\n"
-        "assert cli.main(['cool', 'x.h5']) != 0\n"
+        "import contextlib, io, sys\n"
         "import torch\n"
+        "from genome_cycle_tpu_torch import cli, default_device\n"
+        "flags = {'nci': '--binsize', 'annotate': '--tristate', 'cool': '--frames',\n"
+        "         'dephase': '--no-balancing', 'pc1': '--svd-tolerance',\n"
+        "         'dumpgsd': '--stage'}\n"
+        "for name, flag in flags.items():\n"
+        "    out = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        try:\n"
+        "            cli.main([name, '--help'])\n"
+        "        except SystemExit as exit_info:\n"
+        "            assert exit_info.code == 0, (name, exit_info.code)\n"
+        "    usage = out.getvalue()\n"
+        "    assert flag in usage, (name, usage)\n"
+        "    assert ('--device' in usage) == (name in ('cool', 'dephase', 'pc1')), name\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert cli.main(['analysis-help']) == 0\n"
+        "assert all(name in out.getvalue() for name in flags), out.getvalue()\n"
         "if not torch.cuda.is_available():\n"
+        "    for argv in (['cool', '--output', 'x.cool', 'missing.h5'],\n"
+        "                 ['dephase', '--output', 'y.cool', 'x.cool'],\n"
+        "                 ['pc1', '--output', 'p.tsv', 'x.cool']):\n"
+        "        try:\n"
+        "            cli.main(argv)\n"
+        "        except RuntimeError as err:\n"
+        "            assert 'no CUDA device' in str(err), err\n"
+        "        else:\n"
+        "            raise SystemExit(f'{argv[0]} ran without a card')\n"
         "    try:\n"
         "        default_device()\n"
         "    except RuntimeError:\n"
         "        pass\n"
         "    else:\n"
         "        raise SystemExit('default_device() did not raise without a card')\n"
+        "import os\n"
+        "assert not any(os.path.exists(p) for p in ('x.cool', 'y.cool', 'p.tsv'))\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=tmp_path, env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr
 
 
@@ -74,6 +152,7 @@ def test_cli_offers_the_stage_commands(command, capsys):
     usage = capsys.readouterr().out
     takes_device = command[0] != "transition"
     assert ("--device" in usage) == takes_device
+    assert ("--profile" in usage) == (command == ["interphase"])
 
 
 def test_cli_parses_the_composed_commands():
@@ -89,6 +168,7 @@ def test_cli_parses_the_composed_commands():
         with pytest.raises(SystemExit) as exit_info:
             cli.main(argv)
         assert exit_info.value.code == 2
-    assert set(cli.NOT_PORTED) == {
-        "nci", "annotate", "cool", "dephase", "pc1", "dumpgsd", "analysis-help",
-    }
+    assert not hasattr(cli, "NOT_PORTED")
+    assert set(cli.ANALYSIS_COMMANDS) == {"nci", "annotate", "cool", "dephase", "pc1", "dumpgsd"}
+    assert all(module.startswith("genome_cycle_tpu_torch.analysis.")
+               for module in cli.ANALYSIS_COMMANDS.values())

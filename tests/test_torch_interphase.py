@@ -394,3 +394,22 @@ def test_run_interphase_needs_a_card_unless_cpu_is_asked_for(prepared):
     with SimulationStore(path, "r") as store:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tinter.run_interphase(store, log=lambda m: None)
+
+
+def test_cli_interphase_profile_writes_a_readable_trace(prepared, tmp_path):
+    """``interphase --profile DIR``: the run completes as without the flag,
+    and DIR holds a chrome trace of it with the step's operators."""
+    from genome_cycle_tpu_torch import cli
+
+    path, _ = prepared
+    copy = str(tmp_path / "profiled.h5")
+    shutil.copy(path, copy)
+    trace_dir = tmp_path / "trace"
+    assert cli.main(["interphase", "--device", "cpu", "--profile", str(trace_dir), copy]) == 0
+    with SimulationStore(copy, "r") as store:
+        store.set_stage("interphase")
+        assert store.load_steps() == [0, 20, 40, 60, 80]
+    trace = json.loads((trace_dir / "trace.json").read_text())
+    names = {event.get("name", "") for event in trace["traceEvents"]}
+    assert any(name.startswith("aten::") for name in names)
+    assert len(trace["traceEvents"]) > 1000
