@@ -37,16 +37,26 @@ prints no result.  It
    O/E and PC1 — each step held against the same function on the host (PC1
    on the first three chromosomes' block), timed, the power step against its
    bound;
-8. phase "gate": the port's statistical gate against the C++ surrogate
+8. phase "shards": the multi-device paths as two ranks that share the card
+   (gloo; NCCL across cards cannot run on one card), from the main cycle's
+   relaxed structure, each against the single-device run: (a) one halo
+   step's forces and wall reaction; (b) the first tick's window; (c) 2,000
+   G1 steps through ``run_interphase(mesh=...)``, statistics within 1 %; the
+   replicated-position engine (one step's forces, then 200 steps); the
+   ensemble over the ranks against one process; every rank's local layout
+   (padded rows, home range) against the plain pair force; the kernel's
+   launches on every rank;
+9. phase "gate": the port's statistical gate against the C++ surrogate
    (``tests/test_torch_correlation.py``, both configurations, each replica
    set in one stacked run through the kernel; the surrogate built with
    ``g++``);
-9. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
+10. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -90,6 +100,22 @@ REPLICAS = 4
 CONFIG_ENSEMBLE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000},
                    "interphase": {"steps": 4000, "relaxation_steps": 2000,
                                   "contactmap_output_window": 2}}
+# Phase "shards": two ranks that share the one card.  G1 from the main cycle's
+# relaxed structure (no relaxation of its own), a frame and a window every
+# 1,000 steps; the ensemble over the ranks 2 replicas of 400 steps, a frame
+# every 100; the replicated-position engine 200 steps.  The replicated
+# engine's and the ensemble's positions lie within TWIN_FACTOR times the
+# distance float32 rounding alone puts between two single-process runs over
+# the same steps (the twin: the same run on a layout whose blocks sum each
+# bead's pair terms in another order), measured in the same call.
+SHARD_RANKS = 2
+CONFIG_SHARDS = {"interphase": {"steps": 2000, "relaxation_steps": 0,
+                                "contactmap_output_window": 1}}
+CONFIG_SHARDS_ENSEMBLE = {"interphase": {"steps": 400, "relaxation_steps": 0,
+                                         "sampling_interval": 100,
+                                         "contactmap_output_window": 2}}
+REPLICATED_STEPS = 200
+TWIN_FACTOR = 10.0
 SEED = 1
 EXPECTED_PARTICLES = 59610
 EXPECTED_COARSE = 576
@@ -753,6 +779,326 @@ def analysis_differences(got, want):
             abs(got[2] - want[2]) / want[2])
 
 
+def chain_statistics(x, chains):
+    """Radius of gyration and the second moment of the chain-bond length."""
+    bonds = np.concatenate([np.diff(x[c.start:c.end], axis=0) for c in chains])
+    centred = x - x.mean(axis=0)
+    return (float(np.sqrt(np.mean(np.sum(centred ** 2, axis=1)))),
+            float(np.mean(np.sum(bonds ** 2, axis=1))))
+
+
+def pair_set_difference(got, want):
+    """Rows of the two windows' pair sets that are in one only."""
+    a = {(int(i), int(j)) for i, j in got[:, :2]}
+    b = {(int(i), int(j)) for i, j in want[:, :2]}
+    return len(a ^ b)
+
+
+def run_shards(workdir, design, config, x_relaxed, device):
+    """Phase "shards": the multi-device paths of the port as SHARD_RANKS
+    ranks that share this one card (gloo, tensors staged through the host),
+    each held against the single-device run; see the module docstring.
+    Returns what the kernels line and the rate lines need."""
+    from genome_cycle_tpu_torch.models.interphase import (
+        EngineSettings, InterphaseModel, WindowAccumulator, design_arrays, run_interphase,
+    )
+    from genome_cycle_tpu_torch.ops import pair_kernels as pk
+    from genome_cycle_tpu_torch.parallel import mesh as mesh_ops, ranks
+    from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
+    from genome_cycle_tpu_torch.store import MemoryStore
+
+    ranks_n = SHARD_RANKS
+    devices = [device] * ranks_n
+    backend = mesh_ops.backend_for(devices)
+    phase("shards", f"{ranks_n} ranks on {', '.join(map(str, devices))}, backend {backend} "
+                    "(the ranks share one card: collectives staged through host memory)")
+    phase("shards", "NCCL across cards was not run: the ranks share one card")
+    icfg = config.interphase
+    arrays = design_arrays(design, icfg)
+    settings = EngineSettings()
+    model = InterphaseModel(icfg, arrays, settings, device)
+    x0 = torch.as_tensor(x_relaxed, dtype=torch.float32, device=device)
+    model.update_bound(float(x0.abs().max()))
+    semi0 = np.asarray(icfg.wall_semiaxes_init, np.float32)
+    n = model.n
+
+    def stores(name, seeds, stage_config=CONFIG_SHARDS):
+        """Prepared stores of the nucleus whose relaxation starts from the
+        main cycle's relaxed structure; a path where there is h5py (the ranks
+        open it), else the MemoryStore itself."""
+        made = []
+        for k, seed in enumerate(seeds):
+            store = open_store(workdir, f"{name}_{k}", stage_config, seed)
+            store.set_stage("relaxation")
+            store.save_positions(0, x_relaxed)
+            if isinstance(store, MemoryStore):
+                made.append(store)
+            else:
+                store.close()
+                made.append(os.path.join(workdir, f"{name}_{k}.h5"))
+        return made
+
+    def opened(target):
+        from genome_cycle_tpu_torch.store import SimulationStore
+        return SimulationStore(target) if isinstance(target, str) else target
+
+    cfg = stores("halo", [SEED])[0]
+    cfg_single = stores("single", [SEED])[0]
+    ens_seeds = [SEED + 20 + k for k in range(ranks_n)]       # a replica a rank
+    ens = stores("replica", ens_seeds, CONFIG_SHARDS_ENSEMBLE)
+    ens_single = stores("replica_single", ens_seeds, CONFIG_SHARDS_ENSEMBLE)
+    # The twin: the same replicas in one process in the other order, so
+    # that each sits elsewhere in the stacked layout.
+    ens_twin = stores("replica_twin", ens_seeds[::-1], CONFIG_SHARDS_ENSEMBLE)
+    seed = opened(cfg).load_interphase_design().seed
+    icfg_shards = opened(cfg).load_config().interphase
+    tick = icfg.contactmap_update_interval
+    config_tick = dataclasses.replace(config, interphase=dataclasses.replace(
+        icfg, steps=tick, sampling_interval=tick, contactmap_output_window=1))
+
+    t0 = time.perf_counter()
+    tasks = [
+        ("forces", ranks.halo_forces, (icfg, arrays, settings, x_relaxed, semi0, 1, model.bound)),
+        ("replicated forces", ranks.sharded_forces, (icfg, arrays, settings, x_relaxed, semi0, 1,
+                                                     model.bound)),
+        ("tick", ranks.halo_g1, (1, config_tick, design, x_relaxed, semi0, [seed], settings,
+                                 model.bound)),
+        ("replicated", ranks.sharded_steps, (icfg, arrays, settings, x_relaxed, semi0, seed,
+                                             REPLICATED_STEPS, model.bound)),
+        ("ensemble", ranks.ensemble, (ens, settings)),
+        ("interphase", ranks.interphase, (cfg, settings)),
+    ]
+    results = mesh_ops.spawn(ranks.run_tasks, ranks_n, devices, backend, tasks)
+    seconds = time.perf_counter() - t0
+    for r in results:
+        foreign = sorted({m for task in r.values() for m in task["foreign_modules"]})
+        if foreign:
+            fail("shards", f"rank {r['forces']['rank']} loaded {foreign}")
+
+    # (a) one step's assembled forces and reaction at the same positions.
+    core, bond = model.scales(0.0)
+    semi_t = torch.as_tensor(semi0, device=device)
+    f_single, reaction, _ = model._assemble_forces(x0, core, bond, semi_t)
+    forces = results[0]["forces"]
+    f_single = f_single.cpu().numpy()
+    fmax = float(np.abs(f_single).max())
+    err = float(np.abs(forces["forces"] - f_single).max())
+    r_err = float(np.abs(forces["reaction"] - reaction.cpu().numpy()).max())
+    phase("shards", f"(a) halo step's forces against the single step at the relaxed structure: "
+                    f"max|dF| {err:.3e}, max|F| {fmax:.3e}; reaction {forces['reaction']} "
+                    f"against {reaction.cpu().numpy()} (max diff {r_err:.3e}); own beads "
+                    + ", ".join(str(r["forces"]["own"]) for r in results))
+    if not err <= FORCE_TOLERANCE * max(fmax, 1.0) or not r_err <= FORCE_TOLERANCE * max(
+            float(reaction.abs().max()), 1.0):
+        fail("shards", "(a) the halo step's forces or reaction differ from the single step")
+    # Each rank's local layout (padded rows and all), rebuilt here on the
+    # card, against the plain pair force: the full range, and a home range
+    # from past 0 into the padding (these launches do not count).
+    kernel_err = 0.0
+    local_layouts = []
+    for r in results:
+        local = r["forces"]
+        layout = pk.CellLayout(**{k: torch.as_tensor(v, device=device)
+                                  if isinstance(v, np.ndarray) else v
+                                  for k, v in local["layout"].items()})
+        local_layouts.append(layout)
+        real = int(layout.cell_start[-1])
+        for begin, end in ((0, None), (real // 3, layout.n)):
+            f_k, e_k = pk.ab_pair_forces(layout, local["params"], begin=begin, end=end,
+                                         per_bead=True)
+            f_p, e_p = pk.ab_pair_forces_reference(layout, local["params"], begin=begin, end=end,
+                                                   per_bead=True)
+            inside = torch.zeros(layout.n, dtype=torch.bool, device=device)
+            inside[layout.order[begin:real]] = True
+            diff, max_force = float((f_k - f_p).abs().max()), float(f_p.abs().max())
+            outside = float(f_k[~inside].abs().max()) if (~inside).any() else 0.0
+            energy, plain_energy = float(e_k.sum()), float(e_p.sum())
+            phase("shards", f"rank {local['rank']}: local layout of {layout.n} rows ({real} real), "
+                            f"home range [{begin}, {end or 'real end'}): kernel against plain "
+                            f"max|dF| {diff:.3e} (max|F| {max_force:.3e}), rows outside the range "
+                            f"max|F| {outside}, energy {energy:.6e} against {plain_energy:.6e}")
+            if diff > FORCE_TOLERANCE * max(max_force, 1.0) or outside != 0.0 \
+                    or abs(energy - plain_energy) > ENERGY_TOLERANCE * abs(plain_energy):
+                fail("shards", "the kernel on a rank's local layout disagrees with its plain version")
+            kernel_err = max(kernel_err, diff)
+
+    # (b) the first tick's window, and the drift after its steps.
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    window = WindowAccumulator(n, None, device)
+    carry = model.g1_chunk((x0, generator, semi_t), 0, tick, window)
+    single_window = window.take()
+    halo_tick = results[0]["tick"]
+    tick_window = halo_tick["store"].load_contacts(tick)
+    differ = pair_set_difference(tick_window, single_window)
+    drift_tick = float(np.abs(halo_tick["final"] - carry[0].cpu().numpy()).max())
+    phase("shards", f"(b) first tick ({tick} steps, T = {icfg.temperature}): {len(tick_window)} "
+                    f"pairs against {len(single_window)} single, {differ} rows in one set only; "
+                    f"positions {drift_tick:.3e} apart after {tick} steps; halo "
+                    f"{results[0]['tick']['timings']['halo']}")
+    if differ > 0.01 * len(single_window) or not len(single_window):
+        fail("shards", "(b) the halo tick's pair set differs from the single run's")
+
+    # (c) G1 through run_interphase(mesh=...) against the single run.
+    interphase_results = [r["interphase"] for r in results]
+    single_store = opened(cfg_single)
+    single_timings = {}
+    run_interphase(single_store, log=lambda m: None, device=device, timings=single_timings)
+    halo_store = opened(interphase_results[0]["store"] or cfg)
+    _, x_halo, _ = check_output(halo_store, n, icfg_shards)
+    _, x_single, _ = check_output(single_store, n, icfg_shards)
+    stats_halo = chain_statistics(x_halo, design.chains)
+    stats_single = chain_statistics(x_single, design.chains)
+    apart = float(np.abs(x_halo - x_single).max())
+    steps = icfg_shards.steps
+    phase("shards", f"(c) {steps} G1 steps at T = {icfg_shards.temperature}: radius of gyration "
+                    f"{stats_halo[0]:.6f} sharded, {stats_single[0]:.6f} single; bond-length "
+                    f"second moment {stats_halo[1]:.6e} sharded, {stats_single[1]:.6e} single; "
+                    f"positions {apart:.3e} apart after {steps} steps")
+    for got, want in zip(stats_halo, stats_single):
+        if not abs(got - want) <= 0.01 * abs(want):
+            fail("shards", "(c) the sharded run's statistics differ from the single run's by over 1 %")
+    # A chunk whose statistics fail runs again, widened: its steps launch
+    # the kernel again.  Every rank counts them.
+    for line in interphase_results[0]["log"]:
+        if line.startswith("halo:"):
+            phase("shards", f"(c) {line}")
+    frames = len(halo_store.load_steps())
+    expected, rerun = [], []
+    for r in interphase_results:
+        own_frames = frames - 1 + (2 if r["shard"] == 0 else 0)   # energy passes
+        rerun.append(r["timings"]["g1_steps_run_again"])
+        expected.append(steps + rerun[-1] + own_frames)
+    launches = [r["launches"] for r in interphase_results]
+    phase("shards", f"(c) pair-kernel launches by rank: {launches}, expected {expected} "
+                    f"({steps} steps + {rerun} steps run again + the frames whose energy the "
+                    "rank summed: rank 0 also frame 0 of the relaxation and of G1); final halo "
+                    f"{interphase_results[0]['timings']['halo']}")
+    if launches != expected:
+        fail("shards", "the pair kernel was not launched once a step and once a frame on every rank")
+    halo_g1 = interphase_results[0]["timings"]
+    rate_halo = halo_g1["g1_steps"] / halo_g1["g1_seconds"]
+    rate_single = single_timings["g1_steps"] / single_timings["g1_seconds"]
+
+    # The replicated-position engine against the single run: one step's
+    # forces at the same positions, where the two can differ only in the
+    # order of float32 sums, and why (a home range's launch against a
+    # launch over all rows), then REPLICATED_STEPS steps against the single
+    # run and its twin.
+    rep_forces = results[0]["replicated forces"]
+    rep_err = float(np.abs(rep_forces["forces"] - f_single).max())
+    rep_rows = int((rep_forces["forces"] != f_single).any(axis=1).sum())
+    rep_r_err = float(np.abs(rep_forces["reaction"] - reaction.cpu().numpy()).max())
+    layout0 = model.cell_layout(x0)
+    params0 = model.pair_kernel_params(core)
+    full = pk.ab_pair_forces(layout0, params0)[0]
+    cut_rows = 0
+    for r in results:
+        begin, end = r["replicated forces"]["home"]
+        part = pk.ab_pair_forces(layout0, params0, begin=begin, end=end)[0]
+        home = layout0.order[begin:end]
+        cut_rows += int((part[home] != full[home]).any(dim=1).sum())
+    phase("shards", f"replicated engine, step 1 at the relaxed structure: max|dF| {rep_err:.3e} "
+                    f"(max|F| {fmax:.3e}) in {rep_rows} of {n} beads; reaction max diff "
+                    f"{rep_r_err:.3e}; the pair kernel over each home range against one launch "
+                    f"over all rows: {cut_rows} beads differ (blocks of the kernel cut where the "
+                    f"home range starts, home ranges {rep_forces['home']} and "
+                    f"{results[1]['replicated forces']['home']})")
+    if not rep_err <= FORCE_TOLERANCE * max(fmax, 1.0) or not rep_r_err <= FORCE_TOLERANCE * max(
+            float(reaction.abs().max()), 1.0):
+        fail("shards", "the replicated engine's forces or reaction differ from the single step")
+    generator.manual_seed(int(seed))
+    window = WindowAccumulator(n, None, device)
+    carry = model.g1_chunk((x0, generator, semi_t), 0, REPLICATED_STEPS, window)
+    # The twin: the single run on a grid shifted by a third of a cell.
+    twin_model = InterphaseModel(icfg, arrays, settings, device)
+    twin_model.bound = model.bound + 1.0
+    generator.manual_seed(int(seed))
+    twin = twin_model.g1_chunk((x0, generator, semi_t), 0, REPLICATED_STEPS,
+                               WindowAccumulator(n, None, device))
+    twin_apart = float((twin[0] - carry[0]).abs().max())
+    replicated = results[0]["replicated"]
+    rep_apart = float(np.abs(replicated["positions"] - carry[0].cpu().numpy()).max())
+    rep_differ = pair_set_difference(replicated["window"], window.take())
+    rep_launches = [r["replicated"]["launches"] for r in results]
+    phase("shards", f"replicated engine, {REPLICATED_STEPS} steps: positions {rep_apart:.3e} from "
+                    f"the single run, its twin {twin_apart:.3e} (limit {TWIN_FACTOR:g} times "
+                    f"that), windows differ in {rep_differ} rows; home ranges "
+                    f"{[r['replicated']['home'] for r in results]}; launches {rep_launches}")
+    if not rep_apart <= TWIN_FACTOR * twin_apart:
+        fail("shards", f"the replicated engine lies {rep_apart} from the single run")
+    if rep_launches != [REPLICATED_STEPS] * ranks_n:
+        fail("shards", "the replicated engine did not launch the pair kernel once a step on every rank")
+
+    # The ensemble over the ranks against the same replicas in one process.
+    singles = [opened(t) for t in ens_single]
+    run_ensemble_interphase(singles, log=lambda m: None, device=device)
+    twins = [opened(t) for t in ens_twin]
+    run_ensemble_interphase(twins, log=lambda m: None, device=device)
+    twin_worst = 0.0
+    for k, theirs in enumerate(singles):
+        twin = twins[len(twins) - 1 - k]
+        for store in (theirs, twin):
+            store.set_stage("interphase")
+        for step in theirs.load_steps():
+            twin_worst = max(twin_worst, float(np.abs(twin.load_positions(step)
+                                                      - theirs.load_positions(step)).max()))
+    worst = 0.0
+    for r in results:
+        for k, target in r["ensemble"]["stores"].items():
+            mine, theirs = opened(target), singles[k]
+            mine.set_stage("interphase")
+            theirs.set_stage("interphase")
+            if mine.load_steps() != theirs.load_steps():
+                fail("shards", f"ensemble replica {k}: frames {mine.load_steps()}")
+            for step in theirs.load_steps():
+                worst = max(worst, float(np.abs(mine.load_positions(step)
+                                                - theirs.load_positions(step)).max()))
+                a, b = mine.load_contacts(step), theirs.load_contacts(step)
+                if (a is None) != (b is None) or (a is not None
+                                                  and pair_set_difference(a, b) > 0.01 * len(b)):
+                    fail("shards", f"ensemble replica {k}: window at step {step} differs")
+    ens_launches = [r["ensemble"]["launches"] for r in results]
+    ens_steps = CONFIG_SHARDS_ENSEMBLE["interphase"]["steps"]
+    phase("shards", f"ensemble of {ranks_n} over {ranks_n} ranks, {ens_steps} G1 steps: every frame within "
+                    f"{worst:.3e} of the one-process ensemble, its twin (the replicas in the other "
+                    f"order) within {twin_worst:.3e} (limit {TWIN_FACTOR:g} times that); "
+                    f"launches {ens_launches}")
+    if not worst <= TWIN_FACTOR * twin_worst:
+        fail("shards", f"the ensemble over ranks lies {worst} from the one-process ensemble")
+    if ens_launches != [ens_steps] * ranks_n:
+        fail("shards", "the ensemble over ranks did not launch the pair kernel once a step")
+
+    phase("rate", f"halo G1 with {ranks_n} ranks sharing one card, gloo, host-staged (not a "
+                  f"scaling figure): {rate_halo:.2f} steps/s, {rate_halo * n:.4g} bead-steps/s; "
+                  f"the single run in this phase {rate_single:.2f} steps/s")
+    # The kernel on rank 0's local layout (own beads + two bands, padded),
+    # timed as the other shapes are.
+    local = results[0]["forces"]
+    layout = local_layouts[0]
+    params = tuple(local["params"])
+    ms = time_ms(lambda: pk.ab_pair_forces(layout, params), 20)
+    plain_ms = time_ms(lambda: pk.ab_pair_forces_reference(layout, params), 2)
+    candidates = pk.candidate_pairs(layout)
+    in_reach = pk.pairs_in_reach(layout, params)
+    real = int(layout.cell_start[-1])
+    ops_ms = (OPS_DISTANCE_TEST * candidates + OPS_IN_REACH * in_reach) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = (44 * real + 4 * layout.num_cells) / PEAK_BYTES_PER_S * 1e3
+    phase("time", f"rank 0's local layout: {layout.n} rows, {real} of them beads "
+                  f"({local['own']} own), {candidates} candidate pairs, {in_reach} in reach; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
+                  f"({ops_ms:.5f} operations, {bytes_ms:.5f} bytes)")
+    phase("time", f"phase shards: {time.perf_counter() - t0:.1f} s, of it the ranks {seconds:.1f} s")
+    return dict(launches=launches, replicated_launches=rep_launches, ensemble_launches=ens_launches,
+                kernel_max_abs_err=kernel_err, rate=rate_halo, single_rate=rate_single,
+                seconds=seconds, rerun_steps=rerun,
+                local_layout=dict(ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                                  candidates=candidates, pairs_in_reach=in_reach,
+                                  rows=layout.n, beads=real, own=local["own"],
+                                  cells=layout.num_cells, launches=launches))
+
+
 def run_gate(device, pk):
     """Phase "gate": the port's statistical gate against the C++ surrogate
     (``tests/test_torch_correlation.py``), both configurations, each as one
@@ -964,6 +1310,18 @@ def main():
         ensemble, device, pk, errors)
     pk.ab_pair_forces.launches = launches  # timing launches do not count
 
+    # ---- 8. the multi-device paths, two ranks on this card ------------------
+    phase("depth", f"shards: {json.dumps(CONFIG_SHARDS)}; ensemble over the ranks "
+                   f"{json.dumps(CONFIG_SHARDS_ENSEMBLE)}")
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        shards = run_shards(shard_dir, design, config, x_relaxed, device)
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    errors.max_abs = max(errors.max_abs, shards["kernel_max_abs_err"])
+    timed[f"rank 0's local layout, {SHARD_RANKS} ranks"] = shards["local_layout"]
+    pk.ab_pair_forces.launches = launches  # timing launches do not count
+
     g1 = timings["g1_seconds"]
     rate = timings["g1_steps"] / g1
     share = [steps * timed[k]["ms"] * 1e-3 / g1 for k in ("after relaxation", "after G1")]
@@ -995,13 +1353,14 @@ def main():
     phase("rate", f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}, "
                   f"mean energy {ctx.mean_energy:.4f}")
 
-    # ---- 8. the statistical gate through the kernel -------------------------
+    # ---- 9. the statistical gate through the kernel -------------------------
     gate = run_gate(device, pk)
     pk.ab_pair_forces.launches = launches  # the gate's launches do not count
 
     main_shape = timed["after G1"]
     phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s "
                   f"(phase analysis {sum(analysis['seconds'].values()):.1f} s on the card, "
+                  f"shards {shards['seconds']:.1f} s in the ranks, "
                   f"gate {gate['chain']['seconds'] + gate['nucleolus']['seconds']:.1f} s)")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1012,6 +1371,9 @@ def main():
         "tpu": "ops/pallas_kernels.py::_kernel",
         "launches": launches,
         "launches_ensemble": ensemble["launches"],
+        "launches_shards": {"halo": shards["launches"],
+                            "replicated": shards["replicated_launches"],
+                            "ensemble": shards["ensemble_launches"]},
         "max_abs_err": errors.max_abs,
         "max_rel_err": errors.max_rel,
         "ms": main_shape["ms"],

@@ -7,9 +7,10 @@ whole cell cycle on one device (prepare -> anaphase + telophase -> transition
 interphase -> relaxation + G1 -> transition prometaphase -> prometaphase ->
 transition cycle into the next cell), as the commands ``simulate`` and
 ``cycles`` chain it, the interphase of an ensemble of replicas in
-lock-step on one device (``ensemble``), and the analysis tools, with the
-contact-map and compartment numerics on the device.  Not ported yet:
-multi-device runs and the bench.
+lock-step on one device (``ensemble``), the multi-device drivers on
+``torch.distributed`` (G1 decomposed over ranks, ``interphase --shards``;
+replicas spread over ranks), and the analysis tools, with the contact-map
+and compartment numerics on the device.  Not ported yet: the bench.
 
 Layout (same module and function names as the JAX package):
 
@@ -21,7 +22,8 @@ Layout (same module and function names as the JAX package):
   plain version, contact search and window merge
 - :mod:`genome_cycle_tpu_torch.models`    — prepare, transitions, anatelophase,
   interphase, prometaphase
-- :mod:`genome_cycle_tpu_torch.parallel`  — the ensemble of replicas
+- :mod:`genome_cycle_tpu_torch.parallel`  — the ensemble of replicas, the
+  process group and mesh of ranks, the halo and replicated-position engines
 - :mod:`genome_cycle_tpu_torch.analysis`  — cool, dephase, pc1 (on the device),
   nci, annotate, dumpgsd and their helpers
 - :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays

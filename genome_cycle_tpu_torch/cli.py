@@ -6,7 +6,7 @@ Usage (one trajectory file carries the whole cell cycle, SURVEY.md §3):
     python -m genome_cycle_tpu_torch.cli anatelophase [--device cpu] out.h5
     python -m genome_cycle_tpu_torch.cli transition {interphase|prometaphase} out.h5
     python -m genome_cycle_tpu_torch.cli transition cycle prev.h5 next.h5
-    python -m genome_cycle_tpu_torch.cli interphase [--device cpu] [--profile DIR] out.h5
+    python -m genome_cycle_tpu_torch.cli interphase [--device cpu] [--profile DIR] [--shards N] out.h5
     python -m genome_cycle_tpu_torch.cli prometaphase [--device cpu] out.h5
     python -m genome_cycle_tpu_torch.cli simulate [--device cpu] [-s SEED] -o out.h5 config.json chains.tsv
     python -m genome_cycle_tpu_torch.cli cycles -n 3 [--device cpu] [-s SEED] -o prefix config.json chains.tsv
@@ -29,6 +29,13 @@ The stages and the analysis commands with device work (``cool``,
 unless ``--device cpu`` is given.  ``nci``, ``annotate`` and ``dumpgsd`` are
 host code and take the JAX package's arguments.  ``interphase --profile DIR``
 writes a ``torch.profiler`` trace of the run (chrome trace format) into DIR.
+
+``interphase --shards N`` decomposes the G1 phase over N ranks, one process
+each (``parallel/halo.py``): on ``cuda:0`` ... ``cuda:N-1`` with NCCL, which
+raises when there are fewer than N cards; with ``--device cpu`` on the CPU
+with gloo; with ``--device cuda:K`` all on that one card, with gloo.  Only
+rank 0 opens the trajectory file; with ``--profile`` it traces its own
+process.
 """
 
 from __future__ import annotations
@@ -100,6 +107,22 @@ def _profiled(directory, device):
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
+def _interphase_rank(path, profile):
+    """``interphase --shards``: one rank of the decomposed run.  Rank 0 opens
+    the trajectory, logs and, with ``profile``, traces its process."""
+    import torch.distributed as dist
+
+    from .models.interphase import run_interphase
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, dist.get_world_size())
+    if mesh.shard != 0:
+        run_interphase(None, log=lambda message: None, mesh=mesh)
+        return
+    with _profiled(profile, mesh.device), SimulationStore(path) as store:
+        run_interphase(store, log=log_stderr, mesh=mesh)
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -137,6 +160,13 @@ def main(argv=None) -> int:
         "--profile", metavar="DIR", default=None,
         help="write a torch.profiler trace of the run into DIR (chrome trace "
         "format; view in chrome://tracing or Perfetto)",
+    )
+    p.add_argument(
+        "--shards", type=int, default=None, metavar="N",
+        help="spatially decompose the G1 phase over N ranks, one process each "
+        "(x-slab ownership + halo exchange): one CUDA card a rank with NCCL, "
+        "or all on --device with gloo; the same output schema as the "
+        "single-device run, and with the same seed the same noise",
     )
     _add_store_cmd(sub, "prometaphase", "run prometaphase/metaphase", device=True)
 
@@ -184,8 +214,14 @@ def main(argv=None) -> int:
             run_anatelophase(store, log=log, device=args.device)
 
     elif args.command == "interphase":
-        with _profiled(args.profile, args.device), SimulationStore(args.trajectory) as store:
-            run_interphase(store, log=log, device=args.device)
+        if args.shards is not None and args.shards > 1:
+            from .parallel.mesh import rank_devices, spawn
+
+            devices = rank_devices(args.shards, args.device)
+            spawn(_interphase_rank, args.shards, devices, None, args.trajectory, args.profile)
+        else:
+            with _profiled(args.profile, args.device), SimulationStore(args.trajectory) as store:
+                run_interphase(store, log=log, device=args.device)
 
     elif args.command == "prometaphase":
         with SimulationStore(args.trajectory) as store:

@@ -35,9 +35,10 @@
 // 1. A block owns a run of kRun consecutive sorted beads and works through it
 //    one home cell at a time (a "segment": the beads of the run that share a
 //    cell).  All beads of a segment share one stencil, so its nine ranges are
-//    read once per segment, by nine threads.  The grid is ceil(n / kRun)
-//    blocks: an empty cell costs nothing because no block is made for it, a
-//    cell denser than kRun is spread over several blocks, and the work of a
+//    read once per segment, by nine threads.  The grid is ceil(rows / kRun)
+//    blocks over the rows of the home range (item 6): an empty cell costs
+//    nothing because no block is made for it, a cell denser than kRun is
+//    spread over several blocks, and the work of a
 //    block is bounded by kRun beads whatever the density, so there is no
 //    capacity, no overflow and no long tail behind one dense cell.
 // 2. The neighbours go through shared memory.  The nine ranges, laid end to
@@ -65,6 +66,14 @@
 //    loop: at r2 = 0 its force term is exactly zero, and only the energy
 //    kernel, inside the branch, leaves its own pair out.
 // 5. The result is written in bead order through `order`; no un-sort pass.
+// 6. A home range.  The launch covers the sorted rows [begin, end) only; the
+//    rows of a padded buffer (a rank's own beads and halo bands) carry the
+//    sentinel cell id num_cells, sort after every bead and lie in no range,
+//    and each block clips `end` to cell_start[num_cells], the count of rows
+//    that take part, before it reads a cell id.  So the launch needs no host
+//    synchronisation to learn how many rows are real, and a sentinel row is
+//    never a home bead (its cell_start[c + 1] would lie past the end).  The
+//    caller zeroes the rows that are not written.
 //
 // ab_pair_forces_thread_per_bead_kernel is the first version (one thread per
 // sorted bead walking its ranges in global memory, result in sorted order).
@@ -199,7 +208,8 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
                            const int* __restrict__ cell_id,       // (n) flat cell id; sorted
                            const int* __restrict__ cell_start,    // (cells + 1)
                            const long long* __restrict__ order,   // (n) sorted -> bead id
-                           int n, int nx, int ny, int nz,
+                           int begin, int end,                    // home range, sorted rows
+                           int nx, int ny, int nz,
                            float e_a, float inv_da2, float e_b, float inv_db2,
                            float* __restrict__ forces,            // (n, 3); bead order
                            float* __restrict__ energy) {          // (n) bead order, or unused
@@ -209,7 +219,10 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
     __shared__ int s_prefix[10];   // entries before each range; [9] = all
 
     const int tid = threadIdx.x;
-    const int run_end = min(n, (static_cast<int>(blockIdx.x) + 1) * kRun);
+    // Rows past cell_start[num_cells] are padding (sentinel cell id).
+    const int home_end = min(end, cell_start[nx * ny * nz]);
+    const int run_begin = begin + static_cast<int>(blockIdx.x) * kRun;
+    const int run_end = min(home_end, run_begin + kRun);
 
     const PairConstants pair = {e_a, inv_da2, e_b, inv_db2,
                                 6.0f * e_a * inv_da2, 24.0f * e_b * inv_db2,
@@ -218,7 +231,7 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
                                 // rounded quotient is the smaller one.
                                 fminf(inv_da2, inv_db2)};
 
-    int seg_begin = blockIdx.x * kRun;
+    int seg_begin = run_begin;
     while (seg_begin < run_end) {
         const int c = cell_id[seg_begin];
         const int seg_end = min(run_end, cell_start[c + 1]);
@@ -226,7 +239,7 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
 
         // ---- the stencil of the home cell: nine ranges and their prefix ----
         if (tid < 32) {
-            int begin = 0, length = 0;
+            int range_begin = 0, length = 0;
             if (tid < 9) {
                 const int cz = c % nz;
                 const int cy = (c / nz) % ny;
@@ -235,8 +248,8 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
                 const int y = cy + tid % 3 - 1;
                 if (x >= 0 && x < nx && y >= 0 && y < ny) {
                     const int column = (x * ny + y) * nz;
-                    begin = cell_start[column + max(cz - 1, 0)];
-                    length = cell_start[column + min(cz + 1, nz - 1) + 1] - begin;
+                    range_begin = cell_start[column + max(cz - 1, 0)];
+                    length = cell_start[column + min(cz + 1, nz - 1) + 1] - range_begin;
                 }
             }
             int inclusive = length;
@@ -246,7 +259,7 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
                 if (tid >= o) inclusive += up;
             }
             if (tid < 9) {
-                s_begin[tid] = begin;
+                s_begin[tid] = range_begin;
                 s_prefix[tid] = inclusive - length;
             }
             if (tid == 8) s_prefix[9] = inclusive;
@@ -394,15 +407,17 @@ ab_pair_forces_thread_per_bead_kernel(
 // may be null, which selects the force-only kernel.  They return
 // cudaGetLastError().
 
-// The kernel the package runs: forces (n, 3) and energy (n) in bead order.
+// The kernel the package runs: forces (n, 3) and energy (n) in bead order, for
+// the sorted rows [begin, end) that are not padding; the other rows are left
+// as they are.
 extern "C" int ab_pair_forces_launch(const void* xyz, const void* ab,
                                      const void* cell_id, const void* cell_start,
                                      const void* order,
-                                     int n, int nx, int ny, int nz,
+                                     int begin, int end, int nx, int ny, int nz,
                                      float e_a, float inv_da2, float e_b, float inv_db2,
                                      void* forces, void* energy, void* stream) {
-    if (n <= 0) return 0;
-    const dim3 grid((n + kRun - 1) / kRun);
+    if (end <= begin) return 0;
+    const dim3 grid((end - begin + kRun - 1) / kRun);
     const dim3 block(kBlock);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (energy != nullptr) {
@@ -410,14 +425,14 @@ extern "C" int ab_pair_forces_launch(const void* xyz, const void* ab,
             static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
             static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
             static_cast<const long long*>(order),
-            n, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
+            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
             static_cast<float*>(forces), static_cast<float*>(energy));
     } else {
         ab_pair_forces_cell_kernel<false><<<grid, block, 0, s>>>(
             static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
             static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
             static_cast<const long long*>(order),
-            n, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
+            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
             static_cast<float*>(forces), nullptr);
     }
     return static_cast<int>(cudaGetLastError());

@@ -342,6 +342,14 @@ class InterphaseModel(nn.Module):
 
         return forces, energy
 
+    def pair_kernel_params(self, core_scale):
+        """[e_a, 1/d_a^2, e_b, 1/d_b^2] of the pair kernel at a core scale."""
+        params = self._ab_params(core_scale)
+        return (
+            params["a_energy"], 1.0 / (params["a_diameter"] * params["a_diameter"]),
+            params["b_energy"], 1.0 / (params["b_diameter"] * params["b_diameter"]),
+        )
+
     def pair_forces_full(self, positions, core_scale, with_energy=False):
         """A/B copolymer repulsion for the whole system: O(N^2) brute force
         at or below the threshold, the cell-range kernel above it.  Returns
@@ -364,12 +372,8 @@ class InterphaseModel(nn.Module):
                 positions, coeff, energy_fn if with_energy else None
             )
 
-        kparams = (
-            params["a_energy"], 1.0 / (params["a_diameter"] * params["a_diameter"]),
-            params["b_energy"], 1.0 / (params["b_diameter"] * params["b_diameter"]),
-        )
         forces, energy = ab_pair_forces(
-            self.cell_layout(positions), kparams, with_energy
+            self.cell_layout(positions), self.pair_kernel_params(core_scale), with_energy
         )
         return forces.reshape(positions.shape).to(positions.dtype), energy.to(positions.dtype)
 
@@ -496,15 +500,59 @@ class WindowAccumulator:
         return coo
 
 
+def save_g1_frame(store, model: InterphaseModel, step: int, x, semiaxes, contacts_coo,
+                  mean_energy: float) -> InterphaseContext:
+    """Write G1 frame ``step`` of ``x`` (N, 3) into the store's current
+    stage: positions, the context (time, wall semiaxes, the schedule's scales
+    at that time, ``mean_energy``) and, when given and not empty, the
+    window's contacts.  Returns the context."""
+    t = step * model.config.timestep
+    core, bond = model.scales(t)
+    ctx = InterphaseContext(
+        time=t,
+        wall_semiaxes=tuple(float(v) for v in semiaxes.detach().cpu().numpy()),
+        core_scale=float(core),
+        bond_scale=float(bond),
+        mean_energy=mean_energy,
+    )
+    store.save_positions(step, x.detach().cpu().numpy())
+    store.save_interphase_context(step, ctx)
+    if contacts_coo is not None and len(contacts_coo):
+        store.save_contacts(step, contacts_coo)
+    store.append_frame(step)
+    return ctx
+
+
 def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
-                   device=None, timings: Optional[dict] = None):
+                   device=None, timings: Optional[dict] = None,
+                   n_shards: Optional[int] = None, mesh=None):
     """Full interphase stage: relaxation then G1, with reference cadences.
 
     Runs on the first CUDA card unless ``device`` says otherwise; with no card
     and no such request it raises.  ``timings``, when given, receives the
     host-clock seconds and step counts of the two phases (the device is
     synchronised before each reading).  Returns the final positions.
+
+    With ``mesh`` (``parallel/mesh.py``), or ``n_shards`` > 1 (a mesh of one
+    replica over the process group, which must have that many ranks), the G1
+    phase is spatially decomposed over the ranks of the replica
+    (``parallel/halo.py``).  Every rank calls this, on the mesh's device (a
+    ``device`` that names another raises): the replica's first rank with the
+    store, which only it opens, runs the relaxation and frame 0 and writes
+    everything; the others pass None.  ``timings`` then also receives the G1
+    steps that ran again with a wider halo and the final halo geometry.
     """
+    if mesh is None and n_shards is not None and n_shards > 1:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(1, n_shards)
+    if mesh is not None:
+        from ..parallel.halo import run_halo_g1
+        from ..parallel.mesh import mesh_device
+
+        device = mesh_device(mesh, device)
+        if mesh.shard != 0:
+            return run_halo_g1(None, mesh, None, settings, log, timings)
     device = resolve_device(device)
     config = store.load_config()
     design = store.load_interphase_design()
@@ -599,21 +647,8 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         store.clear_frames()
 
     def save_frame(step, x, semiaxes, contacts_coo=None):
-        t = step * c.timestep
-        core, bond = model.scales(t)
-        ctx = InterphaseContext(
-            time=t,
-            wall_semiaxes=tuple(float(v) for v in to_host(semiaxes)),
-            core_scale=float(core),
-            bond_scale=float(bond),
-            mean_energy=mean_energy(x, t, semiaxes),
-        )
-        store.save_positions(step, to_host(x))
-        store.save_interphase_context(step, ctx)
-        if contacts_coo is not None and len(contacts_coo):
-            store.save_contacts(step, contacts_coo)
-        store.append_frame(step)
-        return ctx
+        return save_g1_frame(store, model, step, x, semiaxes, contacts_coo,
+                             mean_energy(x, step * c.timestep, semiaxes))
 
     if checkpoint is not None:
         x = torch.as_tensor(checkpoint["positions"], dtype=dtype, device=device)
@@ -633,6 +668,12 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         semiaxes = semiaxes + c.timestep * c.wall_mobility * (
             0.0 - model.wall_spring * semiaxes
         )
+
+    if mesh is not None:
+        return run_halo_g1(store, mesh, dict(
+            model=model, config=config, design=design, x=x, generator=generator,
+            semiaxes=semiaxes, resume_step=resume_step,
+        ), settings, log, timings)
 
     window = WindowAccumulator(n, settings.acc_capacity, device, log)
     state = (x, generator, semiaxes)

@@ -30,12 +30,15 @@ from .pair_kernels import CellLayout, expand_ranges, stencil_ranges
 _ACC_PAD = int(np.iinfo(np.int32).max)
 
 
-def contact_events(layout: CellLayout, cutoff: float) -> torch.Tensor:
+def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None) -> torch.Tensor:
     """Every pair i < j with r < cutoff exactly once, as (E, 3) int32 rows
     [i, j, 1] in original bead ids.
 
     The layout holds the positions the search runs on.  ``cutoff`` must not
-    exceed the layout's cell edge (one-cell stencil).
+    exceed the layout's cell edge (one-cell stencil).  Padded rows take part
+    in no pair.  With a home range ``[begin, end)`` of the sorted order only
+    the pairs whose lower sorted index lies in it are listed: ranks whose
+    home ranges tile the sorted order list every pair once between them.
     """
     if cutoff > layout.cell * (1.0 + 1e-6):
         raise ValueError(
@@ -44,9 +47,11 @@ def contact_events(layout: CellLayout, cutoff: float) -> torch.Tensor:
         )
     pos = layout.xyz[:, :3]
     cutoff2 = float(cutoff) * float(cutoff)
+    rows = torch.arange(layout.n, device=pos.device)
+    home = (rows >= begin) & ((rows < end) if end is not None else True)
     found = []
     for start, count in stencil_ranges(layout, half=True):
-        for i, j in expand_ranges(start, count):
+        for i, j in expand_ranges(start, torch.where(home, count, 0)):
             dx = pos[i] - pos[j]
             hit = (torch.sum(dx * dx, dim=-1) < cutoff2) & (j > i)
             found.append(torch.stack([i[hit], j[hit]], dim=1))

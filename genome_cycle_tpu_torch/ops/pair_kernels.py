@@ -13,7 +13,8 @@ Three parts:
   by flat cell id, a cell being the range ``[cell_start[c], cell_start[c+1])``
   of that order.  No per-cell capacity, so nothing overflows.  R replicas of
   one topology share one layout, cubes side by side along x, and so one
-  launch of the kernel.
+  launch of the kernel.  Rows of a padded buffer (a rank's own beads and
+  halo bands, ``parallel/halo.py``) take no cell: they sort after every bead.
 - :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
   hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
   takes the plain version.  It never falls back on the card.  (The source
@@ -55,6 +56,10 @@ class CellLayout(NamedTuple):
     xyz: torch.Tensor          # (R N, 4) f32 x, y, z, 0 in sorted order
     ab: torch.Tensor           # (R N, 2) f32 a, b factors in sorted order
     replicas: int = 1          # R
+    # Whether rows were left out (``valid``): they carry the cell id
+    # ``num_cells``, sort last and lie in no range; ``cell_start[num_cells]``
+    # is the count of the rows that take part.
+    padded: bool = False
 
     @property
     def n(self) -> int:
@@ -76,7 +81,7 @@ def grid_dims(bound: float, cell: float) -> int:
     return max(int(math.ceil(2.0 * bound / cell)), 1)
 
 
-def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayout:
+def build_cell_layout(positions, af, bf, bound: float, cell: float, valid=None) -> CellLayout:
     """Sort beads into the cells of the cubic grid over [-bound, bound]^3.
 
     ``positions`` is (N, 3), or (R, N, 3) for R replicas of one topology
@@ -85,6 +90,13 @@ def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayou
     edge cells of their own replica's cube; clipping is monotone per axis, so
     two beads closer than one cell still land in the same or in neighbouring
     cells and keep interacting.  No host synchronisation.
+
+    ``valid`` (bool, of the positions' leading shape) marks the rows that
+    take part; the others are padding.  A padded row gets the cell id
+    ``num_cells``, one past the last cell, so it sorts after every bead and
+    lies in no ``cell_start`` range: it meets no bead and no other padded
+    row, whatever its coordinates.  (Clipping it into the grid instead would
+    put every padded row in one edge cell, at r = 0 from each other.)
     """
     dims = grid_dims(bound, cell)
     x = positions.to(torch.float32)
@@ -100,6 +112,8 @@ def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayou
         coords[..., 0] += offsets[:, None]
         coords, x = coords.reshape(-1, 3), x.reshape(-1, 3)
     flat = (coords[:, 0] * dims + coords[:, 1]) * dims + coords[:, 2]
+    if valid is not None:
+        flat = torch.where(valid.reshape(-1), flat, nx * dims * dims)
     sorted_flat, order = torch.sort(flat, stable=True)
     edges = torch.arange(nx * dims * dims + 1, device=x.device, dtype=torch.int64)
     cell_start = torch.searchsorted(sorted_flat, edges).to(torch.int32)
@@ -110,7 +124,7 @@ def build_cell_layout(positions, af, bf, bound: float, cell: float) -> CellLayou
     return CellLayout(
         cell=float(cell), dims=dims, order=order,
         cell_id=sorted_flat.to(torch.int32), cell_start=cell_start,
-        xyz=xyz, ab=ab, replicas=replicas,
+        xyz=xyz, ab=ab, replicas=replicas, padded=valid is not None,
     )
 
 
@@ -123,9 +137,11 @@ def stencil_ranges(layout: CellLayout, half: bool = False):
     ``half`` only the ranges whose cells have a flat id not below the bead's
     own are yielded (5 ranges): every unordered pair then appears from its
     lower sorted index only, given the filter ``j > i`` on the own column.
+    A padded row has no stencil: its counts are 0.
     """
     nx, ny, nz = layout.shape
     c = layout.cell_id.to(torch.int64)
+    real = c < nx * ny * nz
     cz = c % nz
     cy = (c // nz) % ny
     cx = c // (nz * ny)
@@ -137,7 +153,7 @@ def stencil_ranges(layout: CellLayout, half: bool = False):
                 continue
             z_lo = cz if half and (ox, oy) == (0, 0) else torch.clamp(cz - 1, min=0)
             x, y = cx + ox, cy + oy
-            inside = (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
+            inside = real & (x >= 0) & (x < nx) & (y >= 0) & (y < ny)
             column = (x.clamp(0, nx - 1) * ny + y.clamp(0, ny - 1)) * nz
             start = starts[column + z_lo]
             count = starts[column + z_hi + 1] - start
@@ -196,22 +212,28 @@ def in_reach(r2, inv_da2: float, inv_db2: float):
     return r2 * min(inv_da2, inv_db2) < 1.0
 
 
-def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = False):
+def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = False,
+                             begin: int = 0, end=None, per_bead: bool = False):
     """Plain torch version of :func:`ab_pair_forces` over the same layout.
 
     ``params`` = [e_a, 1/d_a^2, e_b, 1/d_b^2] (diameters pre-scaled).  Returns
-    (forces (N, 3) in original bead order, energy scalar tensor).
+    (forces (N, 3) in original bead order, energy scalar tensor, or (N,)
+    per-bead energies with ``per_bead``).  Only the rows of the home range
+    ``[begin, end)`` of the sorted order get their force and energy; every
+    other row, padding included, gets zeros.
     """
     e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
+    with_energy = with_energy or per_bead
     pos = layout.xyz[:, :3]
     a, b = layout.ab[:, 0], layout.ab[:, 1]
     forces_sorted = torch.zeros_like(pos)
-    per_bead = pos.new_zeros(pos.shape[0])      # as the kernel: a bead's half of each pair
+    energy_sorted = pos.new_zeros(pos.shape[0])  # as the kernel: a bead's half of each pair
     # Shaped for small systems on a CPU, where a call costs its count of
     # tensor operations: the half stencil's ranges of all beads as one ragged
     # list, every unordered pair once (both beads get their share), and the
     # arithmetic only for the pairs in reach (every other term is exactly
-    # zero, see `in_reach`).
+    # zero, see `in_reach`).  Then the rows outside the home range are
+    # cleared (padded rows take part in no pair: theirs are 0 already).
     n = pos.shape[0]
     ranges = list(stencil_ranges(layout, half=True))
     starts = torch.cat([start for start, _ in ranges])
@@ -236,11 +258,18 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
         forces_sorted.index_add_(0, j, f, alpha=-1)
         if with_energy:
             u = 0.5 * (a_mix * e_a * core_a ** 3 + b_mix * e_b * core_b ** 3)
-            per_bead.index_add_(0, i, u)
-            per_bead.index_add_(0, j, u)
+            energy_sorted.index_add_(0, i, u)
+            energy_sorted.index_add_(0, j, u)
+    for outside in (slice(0, max(int(begin), 0)), slice(n if end is None else int(end), n)):
+        forces_sorted[outside] = 0.0
+        energy_sorted[outside] = 0.0
     forces = torch.empty_like(forces_sorted)
     forces[layout.order] = forces_sorted
-    return forces, per_bead.sum()
+    if per_bead:
+        energy = torch.empty_like(energy_sorted)
+        energy[layout.order] = energy_sorted
+        return forces, energy
+    return forces, energy_sorted.sum()
 
 
 def _entry_points():
@@ -253,9 +282,11 @@ def _entry_points():
     if not cells.argtypes:
         # Every pointer and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit int and cuts the pointer.
-        scalars = [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-        cells.argtypes = [ctypes.c_void_p] * 5 + scalars + [ctypes.c_void_p] * 3
-        thread_per_bead.argtypes = [ctypes.c_void_p] * 4 + scalars + [ctypes.c_void_p] * 3
+        floats = [ctypes.c_float] * 4
+        cells.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + floats
+                          + [ctypes.c_void_p] * 3)
+        thread_per_bead.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + floats
+                                    + [ctypes.c_void_p] * 3)
         cells.restype = thread_per_bead.restype = ctypes.c_int
     return cells, thread_per_bead
 
@@ -288,29 +319,40 @@ def _check_layout(layout: CellLayout):
     _check_tensor("order", layout.order, torch.int64, (n,), device, 8)
 
 
-def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False):
+def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False, begin=0, end=None):
     """Check the inputs, allocate the outputs and launch one of the two
     kernels on the current stream, without synchronising.  Returns (forces
     (N, 3), per-bead energy (N,) or None): in bead order from the kernel the
-    package runs, in sorted order from the first version."""
+    package runs, in sorted order from the first version.  The kernel the
+    package runs takes the home range ``[begin, end)`` and clips ``end`` on
+    the device to the rows that take part; the first version takes every row
+    of a layout without padding."""
     e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
     _check_layout(layout)
     device = layout.xyz.device
     n = layout.n
+    begin = max(int(begin), 0)
+    end = n if end is None else min(int(end), n)
     launch = _entry_points()[1 if thread_per_bead else 0]
-    forces = torch.empty((n, 3), dtype=torch.float32, device=device)
-    per_bead = (
-        torch.empty((n,), dtype=torch.float32, device=device) if with_energy else None
-    )
+    # Rows the kernel does not write (outside the home range, padding) stay 0.
+    partial = begin > 0 or end < n or layout.padded
+    alloc = torch.zeros if partial else torch.empty
+    forces = alloc((n, 3), dtype=torch.float32, device=device)
+    per_bead = alloc((n,), dtype=torch.float32, device=device) if with_energy else None
     pointers = [
         layout.xyz.data_ptr(), layout.ab.data_ptr(),
         layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
     ]
-    if not thread_per_bead:
+    if thread_per_bead:
+        if partial:
+            raise ValueError("the first version of the kernel takes no home range or padding")
+        rows = [n]
+    else:
         pointers.append(layout.order.data_ptr())
+        rows = [begin, end]
     with torch.cuda.device(device):
         status = launch(
-            *pointers, n, *layout.shape,
+            *pointers, *rows, *layout.shape,
             e_a, inv_da2, e_b, inv_db2,
             forces.data_ptr(), per_bead.data_ptr() if with_energy else None,
             torch.cuda.current_stream().cuda_stream,
@@ -320,24 +362,32 @@ def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False):
     return forces, per_bead
 
 
-def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False):
+def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False,
+                   begin: int = 0, end=None, per_bead: bool = False):
     """A/B pair force (and optionally its energy) over a cell layout.
 
     ``params`` = [e_a, 1/d_a^2, e_b, 1/d_b^2] as Python floats, passed to the
-    kernel by value.  Returns (forces (N, 3) in bead-id order, energy scalar
-    tensor over all beads; zero unless ``with_energy``).  On a layout of R
-    replicas N counts the beads of all of them, and the forces reshape to
-    (R, N / R, 3).
+    kernel by value.  Returns (forces (N, 3) in bead-id order, energy: a
+    scalar tensor, zero unless ``with_energy``, or with ``per_bead`` the (N,)
+    energies of the beads).  On a layout of R replicas N counts the beads of
+    all of them, and the forces reshape to (R, N / R, 3).
+
+    Only the beads of the home range ``[begin, end)`` of the sorted order get
+    their force and energy (by default all of them); the other rows, padding
+    included, come back as zeros.  ``end`` is clipped to the rows that take
+    part on the device, so the call needs no host synchronisation.
 
     A CUDA layout goes to the kernel of ``csrc/ab_pair_forces.cu``, launched
     on the current stream without synchronising; anything that keeps it from
     launching raises.  A CPU layout goes to the plain version.
     """
     if layout.xyz.device.type != "cuda":
-        return ab_pair_forces_reference(layout, params, with_energy)
-    forces, per_bead = _launch(layout, params, with_energy)
+        return ab_pair_forces_reference(layout, params, with_energy, begin, end, per_bead)
+    forces, energies = _launch(layout, params, with_energy or per_bead, begin=begin, end=end)
     ab_pair_forces.launches += 1
-    energy = per_bead.sum() if with_energy else forces.new_zeros(())
+    if per_bead:
+        return forces, energies
+    energy = energies.sum() if with_energy else forces.new_zeros(())
     return forces, energy
 
 
@@ -349,8 +399,9 @@ ab_pair_forces.launches = 0
 def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: bool = False):
     """The first version of the kernel (one thread per sorted bead, result
     un-sorted by an indexed copy), with the interface of
-    :func:`ab_pair_forces`.  The package does not run it: the card smoke test
-    and the step profile time the kernel above against it within one run."""
+    :func:`ab_pair_forces` on a layout without padding.  The package does not
+    run it: the card smoke test and the step profile time the kernel above
+    against it within one run."""
     forces_sorted, per_bead = _launch(layout, params, with_energy, thread_per_bead=True)
     _ab_pair_forces_thread_per_bead.launches += 1
     forces = torch.empty_like(forces_sorted)
@@ -368,7 +419,7 @@ def candidate_pairs(layout: CellLayout) -> int:
     total = 0
     for _, count in stencil_ranges(layout):
         total += int(count.sum())
-    return total - layout.n
+    return total - int(layout.cell_start[-1])
 
 
 def pairs_in_reach(layout: CellLayout, params) -> int:

@@ -24,9 +24,12 @@ replicas' bead ids ``r * N + i``; at a dump it is split into the replicas'
 windows (``ops/contact.split_window``).  Every tick of every chunk is merged.
 
 No counterpart here, as in ``run_interphase``: capacity probing and the
-``_AdaptiveEngine`` retries (the layout has no capacity).  The JAX function's
-``mesh`` argument, replicas spread over several devices, belongs with the
-multi-device port.
+``_AdaptiveEngine`` retries (the layout has no capacity).
+
+The ``mesh`` argument spreads the replica axis over ranks, one process each
+(``parallel/mesh.py``): each rank runs its share of the stores stacked, as
+above, and writes only those.  Replicas share nothing, so the ranks never
+communicate, and each replica is the same run as in one process.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..models.interphase import (
 from ..ops.contact import events_to_host, merge_window, split_window
 from ..store import InterphaseContext
 from ..utils.logging import progress_line
+from .mesh import mesh_device
 
 
 def _check_topology(designs, config):
@@ -63,12 +67,19 @@ def _check_topology(designs, config):
                 raise ValueError(f"ensemble stores disagree on topology ({name})")
 
 
+def replica_share(replicas: int, mesh) -> list:
+    """The replicas (indices into the stores) that this rank runs: a
+    contiguous block for each replica row of the mesh."""
+    return [int(k) for k in np.array_split(np.arange(replicas), mesh.n_replicas)[mesh.replica]]
+
+
 def run_ensemble_interphase(
     stores: Sequence,
     settings: Optional[EngineSettings] = None,
     log=print,
     device=None,
     timings: Optional[dict] = None,
+    mesh=None,
 ):
     """Run the interphase stage, relaxation and G1, for R replicas in
     lock-step.
@@ -81,7 +92,19 @@ def run_ensemble_interphase(
     ``timings``, when given, receives the host-clock seconds and step counts
     of the two phases, as from ``run_interphase``.  Returns the final
     positions (R, N, 3).
+
+    With ``mesh`` (R' replicas x 1 shard, one rank each) every rank calls
+    this with the list of all R stores and runs, on the mesh's device (a
+    ``device`` that names another raises), the block of them
+    :func:`replica_share` gives it; the others' entries may be
+    None, as they are never touched.  Returns the final positions of its
+    own replicas.
     """
+    if mesh is not None:
+        if mesh.n_bead_shards != 1:
+            raise ValueError("the ensemble spreads replicas only: use a mesh of (R, 1) ranks")
+        stores = [stores[k] for k in replica_share(len(stores), mesh)]
+        device = mesh_device(mesh, device)
     r = len(stores)
     if r == 0:
         return None

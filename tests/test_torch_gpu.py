@@ -163,6 +163,116 @@ def test_cuda_kernel_on_stacked_replicas_matches_plain_and_single_launches(cuda_
         assert float((f[r] - single).abs().max()) <= 1e-4 * max(float(single.abs().max()), 1.0)
 
 
+@pytest.mark.gpu
+def test_cuda_kernel_padded_layout_and_home_range(cuda_device):
+    """A padded buffer through the kernel: the padded rows take part in no
+    pair and get zeros; a home range of the sorted order gets the forces and
+    energies of those rows of the full launch, every other row zeros; the
+    launch needs no host sync to learn where the padding starts."""
+    x, af, bf = _beads(3000, seed=31)
+    valid = np.ones(len(x), bool)
+    valid[2200:] = False                 # padding, stacked on the real beads
+    x[2200:] = x[0]
+    x, af, bf = (torch.as_tensor(v, device=cuda_device) for v in (x, af, bf))
+    valid = torch.as_tensor(valid, device=cuda_device)
+    padded = pk.build_cell_layout(x, af, bf, 1.2, 0.3, valid=valid)
+    real = pk.build_cell_layout(x[:2200], af[:2200], bf[:2200], 1.2, 0.3)
+    kparams = _kparams(1.0)
+    f_full, e_full = pk.ab_pair_forces(padded, kparams, per_bead=True)
+    f_real, e_real = pk.ab_pair_forces(real, kparams, with_energy=True)
+    torch.cuda.synchronize()
+    assert not f_full[2200:].any() and not e_full[2200:].any()
+    assert float((f_full[:2200] - f_real).abs().max()) <= 1e-4 * max(float(f_real.abs().max()), 1.0)
+    assert float(e_full.sum()) == pytest.approx(float(e_real), rel=1e-5)
+    for begin, end in ((700, 1900), (1000, padded.n), (0, 1)):
+        f, e = pk.ab_pair_forces(padded, kparams, begin=begin, end=end, per_bead=True)
+        f_p, e_p = pk.ab_pair_forces_reference(padded, kparams, begin=begin, end=end, per_bead=True)
+        torch.cuda.synchronize()
+        home = padded.order[begin:min(end, 2200)]
+        outside = torch.ones(len(x), dtype=torch.bool, device=cuda_device)
+        outside[home] = False
+        assert not f[outside].any() and not e[outside].any()
+        assert float((f[home] - f_full[home]).abs().max()) <= 1e-4 * max(float(f_full.abs().max()), 1.0)
+        assert float((f - f_p).abs().max()) <= 1e-4 * max(float(f_p.abs().max()), 1.0)
+        assert float(e.sum()) == pytest.approx(float(e_p.sum()), rel=1e-5, abs=1e-6)
+
+
+def _chain_walk(n, chains, radius, bond_rms=0.1, seed=0):
+    """Chains as ball-confined random walks (as ``bench._chain_walk``, which
+    this file cannot import: it runs where JAX is not installed)."""
+    rng = np.random.default_rng(seed)
+    per = n // chains
+    out = np.empty((per * chains, 3), np.float32)
+    for c in range(chains):
+        walk = np.empty((per, 3))
+        walk[0] = rng.normal(size=3) * radius * 0.3
+        for i in range(1, per):
+            q = walk[i - 1] + rng.normal(0.0, bond_rms / np.sqrt(3.0), 3)
+            r = np.sqrt(q @ q)
+            walk[i] = q * (2.0 * radius - r) / r if r > radius else q
+        out[c * per:(c + 1) * per] = walk
+    return out
+
+
+@pytest.mark.gpu
+def test_two_rank_halo_step_on_one_card(cuda_device):
+    """Two ranks on the one card (gloo, staged through the host): one halo
+    step's assembled forces and wall reaction equal the single step's, and
+    each rank's local layout through the kernel equals the plain version."""
+    import json
+
+    from genome_cycle_tpu_torch.config import parse_config
+    from genome_cycle_tpu_torch.models.interphase import (
+        EngineSettings, InterphaseModel, design_arrays,
+    )
+    from genome_cycle_tpu_torch.parallel import mesh, ranks
+    from genome_cycle_tpu_torch.store import StageDesign
+    from genome_cycle_tpu_torch.topology import ChainAssignment
+
+    n = 4000
+    ab = np.zeros((n, 2))
+    ab[::2, 0] = 1.0
+    ab[1::2, 1] = 1.0
+    design = StageDesign(seed=7, chains=[ChainAssignment(f"chr{i}:a", i * n // 4, (i + 1) * n // 4)
+                                         for i in range(4)],
+                         ab_factors=ab, nucleolar_bonds=np.zeros((0, 2), np.int64))
+    config = parse_config(json.dumps({})).interphase
+    arrays = design_arrays(design, config)
+    settings = EngineSettings(brute_force_threshold=0)
+    x = _chain_walk(n, 4, 1.5, seed=3)
+    semi = np.asarray([2.0, 2.0, 2.0], np.float32)
+    model = InterphaseModel(config, arrays, settings, cuda_device)
+    model.update_bound(float(np.abs(x).max()))
+    results = mesh.spawn(ranks.halo_forces, 2, [cuda_device] * 2, None,
+                         config, arrays, settings, x, semi, 1, model.bound)
+    assert [r["backend"] for r in results] == ["gloo", "gloo"]
+    assert sum(r["own"] for r in results) == n and min(r["own"] for r in results) > 0
+    core, bond = model.scales(0.0)
+    f, reaction, _ = model._assemble_forces(torch.as_tensor(x, device=cuda_device), core, bond,
+                                            torch.as_tensor(semi, device=cuda_device))
+    f = f.cpu().numpy()
+    assert np.abs(results[0]["forces"] - f).max() <= 1e-4 * max(np.abs(f).max(), 1.0)
+    np.testing.assert_allclose(results[1]["reaction"], reaction.cpu().numpy(), rtol=1e-4)
+    for r in results:
+        assert not r["foreign_modules"]
+        # The rank's local layout, padded rows and all, rebuilt on the card:
+        # the full range, and a home range from past 0 into the padding.
+        layout = pk.CellLayout(**{k: torch.as_tensor(v, device=cuda_device)
+                                  if isinstance(v, np.ndarray) else v
+                                  for k, v in r["layout"].items()})
+        real = int(layout.cell_start[-1])
+        assert real < layout.n
+        for begin, end in ((0, None), (real // 3, layout.n)):
+            f_k, e_k = pk.ab_pair_forces(layout, r["params"], begin=begin, end=end, per_bead=True)
+            f_p, e_p = pk.ab_pair_forces_reference(layout, r["params"], begin=begin, end=end,
+                                                   per_bead=True)
+            inside = torch.zeros(layout.n, dtype=torch.bool, device=cuda_device)
+            inside[layout.order[begin:real]] = True
+            assert (f_k[~inside] == 0).all()
+            assert (f_k - f_p).abs().max() <= 1e-4 * max(float(f_p.abs().max()), 1.0)
+            assert float(e_k.sum()) == pytest.approx(float(e_p.sum()), rel=1e-5)
+
+
 def _ensemble_stores(tmp_path, device, replicas=2):
     """Prepared stores of a 600-bead two-chain system, through a short
     anatelophase and the transition, for an ensemble run."""

@@ -19,6 +19,10 @@ MODULES = [
     "genome_cycle_tpu_torch.ops.bonded",
     "genome_cycle_tpu_torch.ops.pair_kernels",
     "genome_cycle_tpu_torch.parallel.ensemble",
+    "genome_cycle_tpu_torch.parallel.mesh",
+    "genome_cycle_tpu_torch.parallel.halo",
+    "genome_cycle_tpu_torch.parallel.sharded",
+    "genome_cycle_tpu_torch.parallel.ranks",
     "genome_cycle_tpu_torch.analysis.common",
     "genome_cycle_tpu_torch.analysis.coolio",
     "genome_cycle_tpu_torch.analysis.cool",
@@ -153,6 +157,7 @@ def test_cli_offers_the_stage_commands(command, capsys):
     takes_device = command[0] != "transition"
     assert ("--device" in usage) == takes_device
     assert ("--profile" in usage) == (command == ["interphase"])
+    assert ("--shards" in usage) == (command == ["interphase"])
 
 
 def test_cli_parses_the_composed_commands():
@@ -172,3 +177,17 @@ def test_cli_parses_the_composed_commands():
     assert set(cli.ANALYSIS_COMMANDS) == {"nci", "annotate", "cool", "dephase", "pc1", "dumpgsd"}
     assert all(module.startswith("genome_cycle_tpu_torch.analysis.")
                for module in cli.ANALYSIS_COMMANDS.values())
+
+
+def test_spawned_ranks_load_no_jax(tmp_path):
+    """A rank that ``parallel/mesh.spawn`` starts from this process, which
+    has JAX loaded, imports the port alone: the spawn start method begins a
+    fresh interpreter and the rank's function lives in the package."""
+    import jax  # noqa: F401  (loaded here, to show that it does not follow)
+
+    from genome_cycle_tpu_torch.parallel import mesh
+
+    reports = mesh.spawn(mesh.mesh_report, 2, ["cpu", "cpu"], None, 1, 2,
+                         rendezvous=tmp_path, threads=1)
+    assert [r["jax_loaded"] for r in reports] == [False, False]
+    assert [r["backend"] for r in reports] == ["gloo", "gloo"]

@@ -23,6 +23,7 @@ from genome_cycle_tpu.ops.pallas_kernels import (
     forces_to_beads,
 )
 from genome_cycle_tpu_torch.ops import pair_kernels as pk
+from genome_cycle_tpu_torch.ops.contact import contact_events
 from genome_cycle_tpu_torch.ops import potentials as tpot
 from genome_cycle_tpu_torch.ops.neighbor import pairwise_forces_dense
 
@@ -239,6 +240,63 @@ def test_cpu_wrapper_counts_no_launch():
     assert pk.ab_pair_forces.launches == before
 
 
+def _padded_layout(n=400, real=300, seed=12):
+    """A buffer of ``n`` rows of which ``real`` hold beads, the padding
+    interleaved and all at one point inside the grid (where clipping would
+    stack them at r = 0 from each other)."""
+    x, af, bf = _beads(n, seed)
+    rng = np.random.default_rng(seed)
+    valid = np.zeros(n, bool)
+    valid[rng.permutation(n)[:real]] = True
+    x[~valid] = x[0]
+    layout = pk.build_cell_layout(torch.as_tensor(x), torch.as_tensor(af), torch.as_tensor(bf),
+                                  1.2, 0.3, valid=torch.as_tensor(valid))
+    return layout, (x, af, bf, valid)
+
+
+@pytest.mark.parametrize("core_scale", [0.5, 1.0])
+def test_padded_layout_and_home_range(core_scale):
+    """Padded rows take part in no pair and no event and come back zero;
+    the forces of a home range equal the same rows of a full launch, the
+    rows outside it are zero; home ranges that tile the sorted order list
+    every contact once between them."""
+    layout, (x, af, bf, valid) = _padded_layout()
+    kparams, _ = _kparams(core_scale)
+    real = int(valid.sum())
+    assert layout.padded and int(layout.cell_start[-1]) == real
+    assert (layout.cell_id[real:] == layout.num_cells).all()
+    assert (layout.cell_id[:real] < layout.num_cells).all()
+    assert not valid[layout.order[real:].numpy()].any()
+    unpadded = _layout(x[valid], af[valid], bf[valid])
+    assert pk.candidate_pairs(layout) == pk.candidate_pairs(unpadded)
+    assert pk.pairs_in_reach(layout, kparams) == pk.pairs_in_reach(unpadded, kparams)
+
+    f, e = pk.ab_pair_forces(layout, kparams, per_bead=True)
+    f_ref, e_ref = pk.ab_pair_forces(unpadded, kparams, per_bead=True)
+    assert not f[~valid].any() and not e[~valid].any()
+    _assert_close(f[valid], f_ref)
+    assert float(e.sum()) == pytest.approx(float(e_ref.sum()), rel=1e-5)
+
+    ids = np.flatnonzero(valid)
+    want = contact_events(unpadded, 0.24 * core_scale)
+    got = contact_events(layout, 0.24 * core_scale)
+    want = {(int(ids[i]), int(ids[j])) for i, j, _ in want.tolist()}
+    assert {(i, j) for i, j, _ in got.tolist()} == want and want
+    tiles = [contact_events(layout, 0.24 * core_scale, b, b + 97) for b in range(0, layout.n, 97)]
+    rows = [(i, j) for t in tiles for i, j, _ in t.tolist()]
+    assert len(rows) == len(want) and set(rows) == want
+
+    for begin, end in ((0, 120), (50, real), (200, layout.n), (real, layout.n)):
+        f_h, e_h = pk.ab_pair_forces(layout, kparams, begin=begin, end=end, per_bead=True)
+        home = layout.order[begin:min(end, real)]
+        outside = torch.ones(layout.n, dtype=torch.bool)
+        outside[home] = False
+        assert not f_h[outside].any() and not e_h[outside].any()
+        assert torch.equal(f_h[home], f[home]) and torch.equal(e_h[home], e[home])
+    f_h, e_h = pk.ab_pair_forces(layout, kparams, with_energy=True, begin=50, end=real)
+    assert float(e_h) == pytest.approx(float(e[layout.order[50:real]].sum()), rel=1e-6)
+
+
 def _overfull_cell(dense=600, spread=100, seed=21):
     """One cell ([0, 0.3)^3 of the grid over [-1.2, 1.2]^3) that holds more
     beads than a block owns and more than one tile of candidates, beside
@@ -325,7 +383,7 @@ def _kernel_constants():
     )
 
 
-def _kernel_work_split(layout, threads, lanes, tile, widen):
+def _kernel_work_split(layout, threads, lanes, tile, widen, home_begin=0, home_end=None):
     """Pure-Python model of ab_pair_forces_cell_kernel's work split: every
     (i, j) a thread evaluates, from block to run of sorted beads to home-cell
     segment, through the nine stencil ranges cut into tiles, each bead's
@@ -340,9 +398,12 @@ def _kernel_work_split(layout, threads, lanes, tile, widen):
     cell_id, starts = layout.cell_id.tolist(), layout.cell_start.tolist()
     run = threads // lanes
     pairs = []
-    for block in range(-(-n // run)):
-        run_end = min(n, (block + 1) * run)
-        seg_begin = block * run
+    home_end = n if home_end is None else home_end
+    rows_end = min(home_end, starts[layout.num_cells])     # padded rows sort last
+    for block in range(-(-(home_end - home_begin) // run)):
+        run_begin = home_begin + block * run
+        run_end = min(rows_end, run_begin + run)
+        seg_begin = run_begin
         while seg_begin < run_end:
             c = cell_id[seg_begin]
             seg_end = min(run_end, starts[c + 1])
@@ -381,9 +442,11 @@ def _kernel_work_split(layout, threads, lanes, tile, widen):
 
 
 @pytest.mark.parametrize("constants", ["as built", (64, 4, 16, 1), (32, 32, 8, 0), (64, 1, 40, 0)])
-@pytest.mark.parametrize("case", ["overfull cell", "single-cell grid", "one bead"])
+@pytest.mark.parametrize("case", ["overfull cell", "single-cell grid", "one bead",
+                                  "padded, home range"])
 def test_kernel_work_split_covers_each_pair_once(case, constants):
     threads, lanes, tile, widen = _kernel_constants() if constants == "as built" else constants
+    begin, end = 0, None
     if case == "overfull cell":
         x, af, bf = _overfull_cell()
         layout = _layout(x, af, bf)
@@ -395,15 +458,22 @@ def test_kernel_work_split_covers_each_pair_once(case, constants):
         x = rng.uniform(-0.1, 0.1, (150, 3)).astype(np.float32)
         layout = _layout(x, np.ones(150, np.float32), np.zeros(150, np.float32), bound=0.1)
         assert layout.num_cells == 1
-    else:
+    elif case == "one bead":
         layout = _layout(np.zeros((1, 3), np.float32), np.ones(1, np.float32),
                          np.zeros(1, np.float32))
+    else:
+        layout, _ = _padded_layout()
+        begin, end = 40, layout.n        # ends inside the padding
+    real = int(layout.cell_start[-1])
     want = []
     for start, count in pk.stencil_ranges(layout):
         for i, j in pk.expand_ranges(start, count):
-            keep = i != j
+            keep = (i != j) & (i >= begin) & (i < min(end or real, real))
             want += list(zip(i[keep].tolist(), j[keep].tolist()))
-    got = _kernel_work_split(layout, threads, lanes, tile, widen)
-    assert len(got) == len(want) == pk.candidate_pairs(layout)
+    got = _kernel_work_split(layout, threads, lanes, tile, widen, begin, end)
+    if case == "padded, home range":
+        assert want and all(j < real for _, j in got)        # no padded row is a neighbour
+    else:
+        assert len(got) == len(want) == pk.candidate_pairs(layout)
     assert sorted(got) == sorted(want)
     assert len(set(got)) == len(got)
