@@ -46,16 +46,35 @@ prints no result.  It
    ensemble over the ranks against one process; every rank's local layout
    (padded rows, home range) against the plain pair force; the kernel's
    launches on every rank;
-9. phase "gate": the port's statistical gate against the C++ surrogate
+9. phase "store": the port's CLI as a user runs it (``prepare``,
+   ``anatelophase``, ``transition interphase``, ``interphase``, each its own
+   process) into a directory store, which needs no h5py; the interphase is
+   killed (SIGKILL) once its first checkpoint is complete and run again: it
+   must resume there and write every G1 frame and window once;
+10. phase "gate": the port's statistical gate against the C++ surrogate
    (``tests/test_torch_correlation.py``, both configurations, each replica
    set in one stacked run through the kernel; the surrogate built with
    ``g++``);
-10. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
+11. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
+
+    python3 chip_smoke.py --production [--g1-steps N | --seconds S] [--output DIR]
+
+runs instead the reference-default cell cycle (``examples/config_production.json``,
+59,610 particles, seed 1) through ``python -m genome_cycle_tpu_torch.production``
+into a scratch directory, keeps ``summary.json``, ``pc1.tsv``, ``aux.json``
+and the log in ``--output`` (default ``build/production/``), and checks the
+trajectory (every stage's frames, 701 G1 frames and 71 windows at full depth), each window's
+counts against its ticks' events, the kernel against its plain version at
+late-G1 structures, and the counts against the JAX package's run of the same
+workload.  ``--g1-steps`` cuts the G1 (the only cut; the JAX counts then do not
+apply); ``--seconds`` cuts it to what fits that many seconds, by a short
+calibration run.  At full depth it needs an hour or more of the card.
 """
 
+import argparse
 import dataclasses
 import io
 import json
@@ -116,6 +135,55 @@ CONFIG_SHARDS_ENSEMBLE = {"interphase": {"steps": 400, "relaxation_steps": 0,
                                          "contactmap_output_window": 2}}
 REPLICATED_STEPS = 200
 TWIN_FACTOR = 10.0
+# Phase "store": the port's CLI into a directory store, the interphase killed
+# (SIGKILL) once its first checkpoint is complete and run again.  The
+# ensemble's mitotic and relaxation depths: after 1,000 telophase and 1,000
+# relaxation steps a bead still lay 1.6 scaled radii outside the wall when G1
+# began.
+CONFIG_STORE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000},
+                "interphase": {"steps": 6000, "relaxation_steps": 2000,
+                               "contactmap_output_window": 2}}
+STORE_RESUME_STEP = 2000
+# Runs a module as ``python -m`` does, then prints the pair kernel's launches
+# in that process (the count a subprocess cannot hand back otherwise).
+LAUNCHER = ("import runpy, sys\n"
+            "from genome_cycle_tpu_torch.ops import pair_kernels as pk\n"
+            "sys.argv = sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
+            "finally:\n"
+            "    print(f'launches {pk.ab_pair_forces.launches}', flush=True)\n")
+# `--production`: the reference defaults (examples/config_production.json)
+# into a scratch directory outside the output directory, which keeps
+# summary.json, pc1.tsv, aux.json and the log.  G1 frames whose structures the
+# kernel is held at (core scale 0.93, 1.00, 1.00); a cut G1 takes 100,000, its
+# middle and its end.
+PRODUCTION_CONFIG = os.path.join(ROOT, "examples", "config_production.json")
+PRODUCTION_OUTPUT = os.path.join(ROOT, "build", "production")
+PRODUCTION_G1_STEPS = 700000
+LATE_G1_FRAMES = (100000, 350000, 700000)
+# `--production --seconds S` cuts the G1 to the deepest multiple of 10,000
+# steps that lets the whole script end within S seconds, from the rates of a
+# short calibration run on this card and host (CALIBRATION_CONFIG), each
+# taken at RATE_MARGIN of its reading: the mitotic stages at the slower of
+# its anaphase's and telophase's rate (the prometaphase, which it does not
+# measure, ran at 0.78 to 0.93 of the anaphase's in every run in PERF.md), the
+# relaxation and the G1 at theirs.  PRODUCTION_OVERHEAD_S is held back
+# beyond that for the processes, the analysis, the checks (58 s in one run)
+# and the host's drift: a run whose plan held nothing back (the G1 at its
+# calibrated rate, which it kept) was stopped 50,000 prometaphase steps
+# short.  The production process itself is stopped CHECK_SECONDS before S.
+CALIBRATION_CONFIG = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000},
+                      "interphase": {"steps": 2000, "relaxation_steps": 2000}}
+RATE_MARGIN = 0.85
+PRODUCTION_OVERHEAD_S = 300
+CHECK_SECONDS = 90
+MIN_G1_STEPS = 200000
+# The JAX package's run of the same workload (BASELINE.md:184-190): counts,
+# not times.  At full depth the port's must lie within JAX_COUNT_SPREAD.
+JAX_RUN = {"coo_rows": 227e6, "pixels": 25.1e6, "contact_events": 14.1e9,
+           "haploid_map_bins": 30795, "largest_window_rows": 5.8e6, "grid_bound": 5.0}
+JAX_COUNT_SPREAD = 0.10
 SEED = 1
 EXPECTED_PARTICLES = 59610
 EXPECTED_COARSE = 576
@@ -581,15 +649,6 @@ def synchronized(fn):
     return out, time.perf_counter() - t0
 
 
-def chrom_ranges(bins):
-    """{chrom: (first bin, end)} in the order of the bin table, as
-    ``Cooler.extent`` gives them for a file written from it."""
-    names = list(dict.fromkeys(bins["chrom"].astype(str)))
-    ids = bins["chrom"].astype(str).map({name: k for k, name in enumerate(names)}).to_numpy()
-    offsets = np.searchsorted(ids, np.arange(len(names) + 1))
-    return {name: (int(offsets[k]), int(offsets[k + 1])) for k, name in enumerate(names)}
-
-
 def balanced_spread(b1, b2, counts, weights):
     """std/mean of the balanced marginals over the unmasked bins (a masked
     bin's NaN weight counts as 0, as ``nansum`` over the balanced map)."""
@@ -688,7 +747,7 @@ def run_analysis(stores, device, card):
 
     matrix, seconds["dense"] = synchronized(lambda: coolio.dense_matrix(
         h1, h2, hcounts, (0, nh), (0, nh), hweights, torch.float32))
-    ranges = chrom_ranges(hap_bins)
+    ranges = pc1.chrom_ranges_of(hap_bins)
     block_end = list(ranges.values())[2][1]
     block = matrix[:block_end, :block_end].clone()
     phase("analysis", f"dense haploid map: {tuple(matrix.shape)} float32, "
@@ -1140,8 +1199,388 @@ def run_gate(device, pk):
     return results
 
 
+def cli_process(args, log_path, **popen):
+    """``python -m genome_cycle_tpu_torch.<args>`` from the repository's root,
+    its output into ``log_path``; the last line it prints is the pair kernel's
+    launch count in that process (``LAUNCHER``)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = open(log_path, "a")
+    return subprocess.Popen([sys.executable, "-c", LAUNCHER, *args], cwd=ROOT, env=env,
+                            stdout=log, stderr=subprocess.STDOUT, **popen), log
+
+
+def run_cli(args, log_path, timeout):
+    """Run a port command to its end; returns its launch count.  Fails with
+    the end of its log if it fails."""
+    process, log = cli_process(args, log_path)
+    try:
+        code = process.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        process.kill()
+        process.wait()
+        code = "killed at its time limit"
+    finally:
+        log.close()
+    text = pathlib.Path(log_path).read_text()
+    if code != 0:
+        tail = "\n".join(text.splitlines()[-30:])
+        fail("store", f"`{' '.join(args)}` exited {code}; its log ends\n{tail}")
+    return int(re.findall(r"^launches (\d+)$", text, re.M)[-1])
+
+
+def run_store_phase(workdir):
+    """Phase "store": the port's CLI as a user runs it, on the card, into a
+    directory store (no h5py); the interphase killed with SIGKILL as soon as
+    its first checkpoint is complete, then run again to its end.  Returns the
+    numbers the summary prints."""
+    from genome_cycle_tpu_torch.store import DirectoryStore, quantize_positions
+
+    t0 = time.perf_counter()
+    config_path = os.path.join(workdir, "store.json")
+    with open(config_path, "w") as f:
+        json.dump(CONFIG_STORE, f)
+    cell = os.path.join(workdir, "cell") + "/"
+    logs = [os.path.join(workdir, f"{name}.log") for name in ("prepare", "killed", "resumed")]
+    cli = "genome_cycle_tpu_torch.cli"
+    run_cli([cli, "prepare", "-s", str(SEED), "-o", cell, config_path, CHAINS], logs[0], 300)
+    run_cli([cli, "anatelophase", cell], logs[0], 600)
+    run_cli([cli, "transition", "interphase", cell], logs[0], 300)
+    if not os.path.isfile(os.path.join(cell, "metadata", "config.txt")):
+        fail("store", f"no directory store at {cell}")
+
+    # The checkpoint's step is written last: once it is there, the snapshot
+    # is whole.
+    marker = os.path.join(cell, "stages", "interphase", ".checkpoint", "step.npy")
+    process, log = cli_process([cli, "interphase", cell], logs[1])
+    try:
+        deadline = time.perf_counter() + 900
+        while not os.path.exists(marker):
+            if process.poll() is not None or time.perf_counter() > deadline:
+                fail("store", f"no checkpoint appeared (exit {process.poll()}); log ends\n"
+                              + "\n".join(pathlib.Path(logs[1]).read_text().splitlines()[-20:]))
+            time.sleep(0.02)
+        process.kill()
+        code = process.wait()
+    finally:
+        if process.poll() is None:
+            process.kill()
+            process.wait()
+        log.close()
+    with DirectoryStore(cell, "r") as store:
+        store.set_stage("interphase")
+        checkpoint = store.load_checkpoint()
+        frames_killed = store.load_steps()
+    phase("store", f"interphase killed (exit {code}) at its first checkpoint, step "
+                   f"{checkpoint['step']}; G1 frames stored then {frames_killed}")
+    if checkpoint["step"] != STORE_RESUME_STEP:
+        fail("store", f"first checkpoint at step {checkpoint['step']}, expected {STORE_RESUME_STEP}")
+
+    launches = run_cli([cli, "interphase", cell], logs[2], 900)
+    text = pathlib.Path(logs[2]).read_text()
+    resumed = f"resuming interphase from checkpoint at step {STORE_RESUME_STEP}" in text
+    with DirectoryStore(cell, "r") as store:
+        config = store.load_config()
+        icfg = config.interphase
+        n = store.load_interphase_design().particle_count
+        _, x_final, ctx = check_output(store, n, icfg)
+        store.set_stage("interphase")
+        frames = store.load_steps()
+        windows = [step for step in frames if store.load_contacts(step) is not None]
+        start = store.load_positions(STORE_RESUME_STEP)
+    same_start = np.array_equal(quantize_positions(checkpoint["positions"]), start)
+    window_steps = icfg.sampling_interval * icfg.contactmap_output_window
+    # A launch a step of the relaxation (again) and of G1 from the
+    # checkpoint, and one for the energy of each frame this process wrote.
+    run_again = icfg.relaxation_steps + icfg.steps - STORE_RESUME_STEP
+    energies = (icfg.relaxation_steps // icfg.relaxation_sampling_interval + 1
+                + (icfg.steps - STORE_RESUME_STEP) // icfg.sampling_interval)
+    phase("store", f"run again: resume logged at step {STORE_RESUME_STEP}: {resumed}; G1 frames "
+                   f"{frames}; windows at {windows}; the checkpoint's positions quantized equal "
+                   f"the stored frame at {STORE_RESUME_STEP}: {same_start}; pair-kernel launches "
+                   f"{launches} (expected {run_again} steps, the relaxation again and G1 from "
+                   f"{STORE_RESUME_STEP}, + {energies} frames); checkpoint cleared; "
+                   f"{time.perf_counter() - t0:.1f} s")
+    if not resumed:
+        fail("store", "the interphase run again did not resume from its checkpoint")
+    if frames != list(range(0, icfg.steps + 1, icfg.sampling_interval)):
+        fail("store", f"G1 frames {frames}")
+    if windows != list(range(0, icfg.steps + 1, window_steps)):
+        fail("store", f"windows at {windows}")
+    if not same_start:
+        fail("store", "the resumed G1 did not start from the stored frame of its checkpoint")
+    if launches != run_again + energies:
+        fail("store", f"{launches} pair-kernel launches in the resumed run")
+    return dict(seconds=time.perf_counter() - t0, launches=launches, frames=len(frames),
+                windows=len(windows))
+
+
+def kernel_at(label, layout, params, pk, errors, n):
+    """The kernel held against its plain version on ``layout``
+    (:func:`compare`) and timed beside it; returns its entry for the
+    kernels line."""
+    compare(f"kernel: {label}", layout, params, pk, errors)
+    candidates = pk.candidate_pairs(layout)
+    in_reach = pk.pairs_in_reach(layout, params)
+    ms = time_ms(lambda: pk.ab_pair_forces(layout, params), 20)
+    plain_ms = time_ms(lambda: pk.ab_pair_forces_reference(layout, params), 2)
+    ops_ms = (OPS_DISTANCE_TEST * candidates + OPS_IN_REACH * in_reach) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = (44 * n + 4 * layout.num_cells) / PEAK_BYTES_PER_S * 1e3
+    phase("time", f"{label}: {candidates} candidate pairs, {in_reach} in reach "
+                  f"({in_reach / candidates:.4f} of them), in {layout.num_cells} cells; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
+                  f"({ops_ms:.5f} operations, {bytes_ms:.5f} bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, candidates=candidates, pairs_in_reach=in_reach,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                cells=layout.num_cells)
+
+
+def fit_g1_steps(seconds, started, device):
+    """The deepest G1 (a multiple of 10,000 steps, at most 700,000) that
+    lets the production run and its checks end within ``seconds`` of
+    ``started``, by the rates of a calibration run here (see
+    CALIBRATION_CONFIG); fails when not even MIN_G1_STEPS fit."""
+    from genome_cycle_tpu_torch.config import parse_config
+    from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
+    from genome_cycle_tpu_torch.models.interphase import run_interphase
+    from genome_cycle_tpu_torch.models.transitions import transition_interphase
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_calibration_")
+    try:
+        timings = {}
+        store = open_store(workdir, "calibration", CALIBRATION_CONFIG, SEED)
+        run_anatelophase(store, log=lambda m: None, device=device, timings=timings)
+        transition_interphase(store, log=lambda m: None)
+        run_interphase(store, log=lambda m: None, device=device, timings=timings)
+        store.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rate = {k: timings[f"{k}_steps"] / timings[f"{k}_seconds"]
+            for k in ("anaphase", "telophase", "relaxation", "g1")}
+    with open(PRODUCTION_CONFIG) as f:
+        config = parse_config(f.read())
+    m, c = config.mitotic_phase, config.interphase
+    mitotic = m.anaphase_steps + m.telophase_steps + m.prometaphase_steps
+    fixed = (mitotic / (RATE_MARGIN * min(rate["anaphase"], rate["telophase"]))
+             + c.relaxation_steps / (RATE_MARGIN * rate["relaxation"]))
+    left = seconds - (time.perf_counter() - started) - PRODUCTION_OVERHEAD_S - fixed
+    steps = min(PRODUCTION_G1_STEPS, int(left * RATE_MARGIN * rate["g1"]) // 10000 * 10000)
+    phase("depth", "calibration: " + ", ".join(f"{k} {v:.2f} steps/s" for k, v in rate.items())
+                   + f"; {mitotic} mitotic and {c.relaxation_steps} relaxation steps take "
+                   f"{fixed:.0f} s at {RATE_MARGIN} of these rates, {left:.0f} s are left of "
+                   f"{seconds} s: G1 {steps} steps")
+    if steps < MIN_G1_STEPS:
+        fail("depth", f"a G1 of {MIN_G1_STEPS} steps does not fit {seconds} s on this host")
+    return steps
+
+
+def print_production_rates(summary):
+    """Each stage's and each G1 window's seconds, steps/s and peak device
+    memory, as the production run recorded them."""
+    for name, entry in summary["stages"].items():
+        for key, value in entry.items():
+            if isinstance(value, dict) and "steps" in value:
+                phase("rate", f"{name}, {key}: {value['steps']} steps in {value['seconds']:.2f} s, "
+                              f"{value['steps_per_s']:.2f} steps/s")
+        if "seconds" in entry:
+            phase("rate", f"{name}: {entry['seconds']:.2f} s wall, peak device memory "
+                          f"{entry.get('peak_bytes', 0) / 2**20:.1f} MiB")
+    g1 = summary["stages"]["interphase"]
+    depth = summary["depth"]
+    window_steps = depth["sampling_interval"] * depth["window_frames"]
+    ticks = window_steps // depth["tick_interval"]
+    for w in g1.get("windows", []):
+        rate = f", {window_steps / w['seconds']:.2f} steps/s" if w["seconds"] else ""
+        phase("rate", f"window at G1 step {w['step']}: {w['rows']} rows from {w['events']} "
+                      f"events ({w['events'] / max(ticks, 1):.0f} a tick), accumulator capacity "
+                      f"{w['capacity']}, {w['seconds']:.2f} s since the previous window{rate}")
+    analysis = summary["analysis"]
+    phase("rate", "analysis: " + ", ".join(f"{k} {v:.3f} s" for k, v in analysis["seconds"].items())
+                  + f"; peak device memory {analysis.get('peak_bytes', 0) / 2**20:.1f} MiB")
+
+
+def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_OUTPUT):
+    """``--production``: ``genome_cycle_tpu_torch.production`` at the
+    reference defaults (G1 cut to ``g1_steps`` when that is less than
+    700,000) on ``device``, into a scratch directory; then the rates it
+    recorded, the kernel at late-G1 structures, and the checks of its
+    trajectory, of the windows against their ticks' events and of the
+    counts against the JAX run's."""
+    from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
+    from genome_cycle_tpu_torch.ops import pair_kernels as pk
+    from genome_cycle_tpu_torch.store import DirectoryStore
+
+    os.makedirs(output, exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_production_")
+    with open(PRODUCTION_CONFIG) as f:
+        config = json.load(f)
+    if g1_steps != PRODUCTION_G1_STEPS:
+        config.setdefault("interphase", {})["steps"] = g1_steps
+    config_path = os.path.join(scratch, "config.json")
+    with open(config_path, "w") as f:
+        json.dump(config, f)
+    phase("depth", f"production: {json.dumps(config)}"
+                   + ("" if g1_steps == PRODUCTION_G1_STEPS else
+                      f" (G1 cut from {PRODUCTION_G1_STEPS} to {g1_steps} steps)"))
+    # Positions of every frame and the windows' rows, at the JAX run's
+    # largest window, twice over.
+    frames = g1_steps // 1000 + 1 + 11 + 1 + 701
+    windows = g1_steps // 10000 + 1
+    need = 2 * (frames * EXPECTED_PARTICLES * 12 + windows * JAX_RUN["largest_window_rows"] * 12)
+    free = shutil.disk_usage(scratch).free
+    phase("store", f"scratch {scratch}: {free / 2**30:.1f} GiB free, {need / 2**30:.1f} GiB wanted")
+    if free < need:
+        fail("store", f"{free / 2**30:.1f} GiB free under {scratch}, {need / 2**30:.1f} GiB needed")
+
+    run = os.path.join(scratch, "run")
+    log_path = os.path.join(output, "production.log")
+    try:
+        t0 = time.perf_counter()
+        limit = 7 * 3600 if seconds is None else seconds - (t0 - started) - CHECK_SECONDS
+        launches = run_cli(["genome_cycle_tpu_torch.production", "--output", run,
+                            "-s", str(SEED), config_path, CHAINS], log_path, limit)
+        wall = time.perf_counter() - t0
+        for name in ("summary.json", "pc1.tsv", "aux.json"):
+            shutil.copy(os.path.join(run, name), output)
+        with open(os.path.join(run, "summary.json")) as f:
+            summary = json.load(f)
+        phase("production", f"exit 0 after {wall:.1f} s; pair-kernel launches {launches}")
+        print_production_rates(summary)
+        with DirectoryStore(os.path.join(run, "trajectory"), "r") as store:
+            errors = Errors()
+            model = InterphaseModel.from_design(store.load_interphase_design(),
+                                                store.load_config(), EngineSettings(), device)
+            icfg = model.config
+            store.set_stage("interphase")
+            steps = store.load_steps()
+            late = LATE_G1_FRAMES
+            if g1_steps != PRODUCTION_G1_STEPS:
+                late = (LATE_G1_FRAMES[0], steps[-1] // 2000 * 1000, steps[-1])
+            late = sorted(set(late) & set(steps))
+            shapes = {}
+            for step in late:
+                x = torch.as_tensor(store.load_positions(step), dtype=torch.float32, device=device)
+                model.update_bound(float(x.abs().max()))
+                ctx = store.load_interphase_context(step)
+                label = f"{model.n:,} beads at G1 step {step} (core scale {ctx.core_scale:.4f})"
+                shapes[f"G1 step {step}"] = kernel_at(
+                    label, model.cell_layout(x), kernel_params(ctx.core_scale, icfg), pk, errors,
+                    model.n)
+            checked = check_production(store, summary, launches, pk)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s")
+    main_shape = shapes[f"G1 step {late[-1]}"]
+    print(card, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "ab_pair_forces",
+        "route": "cuda",
+        "source": "genome_cycle_tpu_torch/csrc/ab_pair_forces.cu",
+        "replaces": "genome_cycle_tpu/ops/pallas_kernels.py:109",
+        "launches": launches,
+        "max_abs_err": errors.max_abs,
+        "max_rel_err": errors.max_rel,
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "shapes": shapes,
+        "production": checked,
+    }]}), flush=True)
+
+
+def check_production(store, summary, launches, pk):
+    """What the production run wrote: every stage's frames, the G1's
+    windows against their ticks' events, the launches, and the counts beside
+    the JAX run's (held to them at full depth).  Returns the counts."""
+    config = store.load_config()
+    icfg, m = config.interphase, config.mitotic_phase
+    n = store.load_interphase_design().particle_count
+    if n != EXPECTED_PARTICLES:
+        fail("production", f"{n} particles, expected {EXPECTED_PARTICLES}")
+    check_anatelophase(store, m)
+    _, _, ctx = check_output(store, n, icfg)
+    check_prometaphase(store, m)
+    g1 = summary["stages"]["interphase"]
+    if g1.get("skipped"):
+        fail("production", "the interphase ran in an earlier process: its windows' events are "
+                           "not in this summary")
+    lost = []
+    store.set_stage("interphase")
+    for w in g1["windows"]:
+        counted = int(store.load_contacts(w["step"])[:, 2].astype(np.int64).sum())
+        if counted != w["events"]:
+            lost.append((w["step"], counted, w["events"]))
+    window_steps = list(range(0, icfg.steps + 1,
+                              icfg.sampling_interval * icfg.contactmap_output_window))
+    phase("check", f"every window's counts against its ticks' events: {len(g1['windows'])} "
+                   f"windows, {len(lost)} differ {lost[:5]}")
+    if lost or [w["step"] for w in g1["windows"]] != window_steps:
+        fail("production", "a window's counts differ from its ticks' events (or a window is "
+                           "missing)")
+    relax, g1_steps = icfg.relaxation_steps, icfg.steps
+    if launches < relax + g1_steps:
+        fail("production", f"{launches} pair-kernel launches for {relax + g1_steps} steps")
+    counts = dict(summary["trajectory"], pixels=summary["analysis"]["pixels"],
+                  haploid_bins=summary["analysis"]["haploid_bins"],
+                  kept=summary["analysis"]["kept"], grid_bound=g1["grid_bound"],
+                  final_semiaxes=list(ctx.wall_semiaxes), launches=launches)
+    full = g1_steps == PRODUCTION_G1_STEPS
+    # A cut G1 projected to full depth at its last window's rows and events
+    # (not a comparison: the windows have not settled in every run).
+    last, missing = g1["windows"][-1], (PRODUCTION_G1_STEPS - g1_steps) // (
+        icfg.sampling_interval * icfg.contactmap_output_window)
+    projected = {"coo_rows": counts["coo_rows"] + missing * last["rows"],
+                 "contact_events": counts["contact_events"] + missing * last["events"]}
+    for key, label in (("coo_rows", "COO rows"), ("pixels", "diploid pixels"),
+                       ("contact_events", "contact events"),
+                       ("largest_window_rows", "largest window's rows"),
+                       ("grid_bound", "final grid bound")):
+        ratio = counts[key] / JAX_RUN[key]
+        cut = "" if full else "; not comparable: G1 cut" + (
+            f" (projected to {PRODUCTION_G1_STEPS} steps at the last window's: "
+            f"{projected[key]}, {projected[key] / JAX_RUN[key]:.4f} of the JAX run's)"
+            if key in projected else "")
+        phase("check", f"{label}: {counts[key]} against the JAX run's {JAX_RUN[key]:.4g} "
+                       f"({ratio:.4f} of it){cut}")
+        if full and key in ("coo_rows", "pixels", "contact_events") \
+                and abs(ratio - 1) > JAX_COUNT_SPREAD:
+            fail("production", f"{label} off the JAX run's by more than {JAX_COUNT_SPREAD:.0%}")
+    phase("check", f"the JAX run's {JAX_RUN['haploid_map_bins']}-bin haploid map against the "
+                   f"port's {counts['haploid_bins']} haploid bins (fixed by the chain table) and "
+                   f"the {counts['kept']} columns PC1 keeps")
+    counts["projected_to_full_depth"] = None if full else projected
+    return counts
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="smoke test of the port on one CUDA card")
+    parser.add_argument("--production", action="store_true",
+                        help="instead: the reference-default production cycle at full width "
+                        "through genome_cycle_tpu_torch.production, and its checks")
+    depth = parser.add_mutually_exclusive_group()
+    depth.add_argument("--g1-steps", type=int, default=PRODUCTION_G1_STEPS,
+                       help="with --production: cut the G1 to these steps (a multiple of "
+                       "10,000; at least 200,000)")
+    depth.add_argument("--seconds", type=float, default=None,
+                       help="with --production: cut the G1 to the deepest multiple of 10,000 "
+                       "steps that lets the script end within these seconds, by the rates "
+                       "of a short calibration run")
+    parser.add_argument("--output", default=PRODUCTION_OUTPUT,
+                        help="with --production: the directory that keeps summary.json, pc1.tsv, "
+                        "aux.json and the production log (the trajectory goes to a scratch "
+                        "directory, never there)")
+    args = parser.parse_args(argv)
+    if args.g1_steps % 10000 or not MIN_G1_STEPS <= args.g1_steps <= PRODUCTION_G1_STEPS:
+        parser.error("--g1-steps: a multiple of 10,000 from 200,000 to 700,000")
+    return args
+
+
 def main():
     started = time.perf_counter()
+    args = parse_args()
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1180,6 +1619,18 @@ def main():
             if "ab_pair_forces_cell_kernel" in kernel and "spill" in line \
                     and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 fail("build", "the kernel spills registers")
+
+    if args.production:
+        g1_steps = args.g1_steps
+        if args.seconds is not None:
+            g1_steps = fit_g1_steps(args.seconds, started, device)
+        production(g1_steps, card, started, device, args.seconds, args.output)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     # ---- 3a. kernel against its plain version, small inputs ----------------
     errors = Errors()
@@ -1353,14 +1804,22 @@ def main():
     phase("rate", f"final wall semiaxes {tuple(round(v, 4) for v in ctx.wall_semiaxes)}, "
                   f"mean energy {ctx.mean_energy:.4f}")
 
-    # ---- 9. the statistical gate through the kernel -------------------------
+    # ---- 9. the port's CLI into a directory store, killed and resumed ------
+    phase("depth", f"store: {json.dumps(CONFIG_STORE)}")
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        stored = run_store_phase(store_dir)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # ---- 10. the statistical gate through the kernel ------------------------
     gate = run_gate(device, pk)
     pk.ab_pair_forces.launches = launches  # the gate's launches do not count
 
     main_shape = timed["after G1"]
     phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s "
                   f"(phase analysis {sum(analysis['seconds'].values()):.1f} s on the card, "
-                  f"shards {shards['seconds']:.1f} s in the ranks, "
+                  f"shards {shards['seconds']:.1f} s in the ranks, store {stored['seconds']:.1f} s, "
                   f"gate {gate['chain']['seconds'] + gate['nucleolus']['seconds']:.1f} s)")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1374,6 +1833,7 @@ def main():
         "launches_shards": {"halo": shards["launches"],
                             "replicated": shards["replicated_launches"],
                             "ensemble": shards["ensemble_launches"]},
+        "launches_store": stored["launches"],
         "max_abs_err": errors.max_abs,
         "max_rel_err": errors.max_rel,
         "ms": main_shape["ms"],

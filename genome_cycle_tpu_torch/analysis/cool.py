@@ -8,8 +8,8 @@ chromosome, an optional frame selection restricts which sampled windows
 contribute, and the matrix is iteratively balanced at the end.
 
 The stores are read through the port's store views, so a source is a
-trajectory file's path or an open store, a ``SimulationStore`` or a
-``MemoryStore`` alike.  The pixel merge and the balancing run on a torch
+trajectory's path (an HDF5 file or a directory store) or an open store of
+any backend.  The pixel merge and the balancing run on a torch
 device (:mod:`.coolio`).
 """
 
@@ -25,7 +25,7 @@ import numpy as np
 import pandas as pd
 
 from .. import resolve_device
-from ..store import SimulationStore
+from ..store import open_store
 from .common import invoke_main, remove_none
 from .coolio import Cooler, balance_cooler, merge_pixels, write_cooler
 
@@ -43,7 +43,7 @@ def _opened(source):
     """A path opens read-only (and closes after); an open store is used as
     it is and left open."""
     if isinstance(source, str):
-        return SimulationStore(source, "r")
+        return open_store(source, "r")
     return contextlib.nullcontext(source)
 
 

@@ -269,7 +269,14 @@ def main(
         svd_tolerance=svd_tolerance,
     )
     LOG.info("Explained variance ratio: %.1f %%", evr * 100)
+    write_pc1(output, bins, pc1, ev1, evr, expected, aux_output)
 
+
+def write_pc1(output: str, bins, pc1, ev1, evr: float, expected: OEProfile,
+              aux_output: str | None = None):
+    """The PC1 table (the bins' chrom/start/end, then ev1 and pc1) and,
+    with ``aux_output``, the JSON of the explained-variance ratio, the cis
+    decay profile and the trans expected."""
     # Output contract (columns, separators, NaN spelling, aux keys) follows
     # the reference tool so downstream comparisons are drop-in.
     table = bins[["chrom", "start", "end"]].copy()
@@ -291,6 +298,61 @@ def main(
                 },
                 file,
             )
+
+
+def chrom_ranges_of(bins) -> dict:
+    """{chrom: (first bin, end)} in the order of the bin table, as
+    ``Cooler.extent`` gives them for a file written from it."""
+    names = list(dict.fromkeys(bins["chrom"].astype(str)))
+    ids = bins["chrom"].astype(str).map({name: k for k, name in enumerate(names)}).to_numpy()
+    offsets = np.searchsorted(ids, np.arange(len(names) + 1))
+    return {name: (int(offsets[k]), int(offsets[k + 1])) for k, name in enumerate(names)}
+
+
+def pc1_of_trajectories(sources, device=None, stats: dict | None = None):
+    """The haploid PC1 of trajectory stores (paths or open stores), as
+    ``cool``, ``dephase`` and ``pc1`` with their defaults give it through
+    ``.cool`` files, but in memory on ``device``: the merged pixels, ICE,
+    the dephased pixels, ICE, the balanced dense haploid map in float32, O/E
+    and PC1.  Returns (haploid bins, pc1, ev1, evr, expected), what
+    :func:`write_pc1` takes.  ``stats``, when given, receives the counts of
+    each step (bins, pixels, contacts, ICE rounds, kept columns, power
+    steps) and its host-clock seconds (the device synchronised)."""
+    from . import cool, coolio, dephase
+
+    device = resolve_device(device)
+    stats = {} if stats is None else stats
+    seconds = stats.setdefault("seconds", {})
+
+    def timed(name, fn):
+        _synchronize(device)
+        started = time.perf_counter()
+        out = fn()
+        _synchronize(device)
+        seconds[name] = time.perf_counter() - started
+        return out
+
+    bins, b1, b2, counts = timed("cool", lambda: cool.contact_pixels(sources, device=device))
+    stats.update(bins=len(bins), pixels=len(b1), contacts=int(counts.sum()))
+    ice = {}
+    weights = timed("ice", lambda: coolio.ice_weights(b1, b2, counts, len(bins), stats=ice))
+    hap_bins, projection = dephase.project_bins(bins)
+    nh = len(hap_bins)
+    h1, h2, hcounts = timed("dephase", lambda: coolio.merge_pixels(
+        [dephase.dephase_pixels(b1, b2, counts, projection)], nh, device))
+    del b1, b2, counts, weights
+    hap_ice = {}
+    hweights = timed("ice_haploid", lambda: coolio.ice_weights(
+        h1, h2, hcounts, nh, stats=hap_ice))
+    stats.update(haploid_bins=nh, haploid_pixels=len(h1),
+                 ice_rounds=[ice["rounds"], hap_ice["rounds"]])
+    matrix = timed("dense", lambda: coolio.dense_matrix(
+        h1, h2, hcounts, (0, nh), (0, nh), hweights.cpu().numpy(), torch.float32))
+    pc_timings = {}
+    pc1, ev1, evr, expected = timed("pc1", lambda: compute_pc1(
+        matrix, chrom_ranges_of(hap_bins), timings=pc_timings))
+    stats.update(kept=pc_timings["kept"], power_steps=pc_timings["power_steps"])
+    return hap_bins, pc1, ev1, evr, expected
 
 
 def parse_args(argv=None) -> dict:

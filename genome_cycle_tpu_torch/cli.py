@@ -30,6 +30,12 @@ unless ``--device cpu`` is given.  ``nci``, ``annotate`` and ``dumpgsd`` are
 host code and take the JAX package's arguments.  ``interphase --profile DIR``
 writes a ``torch.profiler`` trace of the run (chrome trace format) into DIR.
 
+A trajectory is an HDF5 file, or a directory store (one file per HDF5 path,
+``store.DirectoryStore``) where the path is an existing directory or ends in
+``/``: ``simulate -o cell/ ...`` needs no ``h5py``.  ``dumpgsd`` and the
+commands that write or read a ``.cool`` file (``cool``, ``dephase``, ``pc1``,
+``nci``, ``annotate``) need ``h5py``.
+
 ``interphase --shards N`` decomposes the G1 phase over N ranks, one process
 each (``parallel/halo.py``): on ``cuda:0`` ... ``cuda:N-1`` with NCCL, which
 raises when there are fewer than N cards; with ``--device cpu`` on the CPU
@@ -44,7 +50,7 @@ import argparse
 import contextlib
 import sys
 
-from .store import SimulationStore
+from .store import open_store
 from .utils.logging import log_stderr
 
 ANALYSIS_COMMANDS = {
@@ -59,7 +65,7 @@ ANALYSIS_COMMANDS = {
 
 def _add_store_cmd(sub, name, help_text, device=False):
     p = sub.add_parser(name, help=help_text)
-    p.add_argument("trajectory", help="trajectory .h5 file")
+    p.add_argument("trajectory", help="trajectory: an .h5 file, or a directory store")
     if device:
         _add_device(p)
     return p
@@ -119,7 +125,7 @@ def _interphase_rank(path, profile):
     if mesh.shard != 0:
         run_interphase(None, log=lambda message: None, mesh=mesh)
         return
-    with _profiled(profile, mesh.device), SimulationStore(path) as store:
+    with _profiled(profile, mesh.device), open_store(path) as store:
         run_interphase(store, log=log_stderr, mesh=mesh)
 
 
@@ -210,7 +216,7 @@ def main(argv=None) -> int:
         run_prepare(args.output, args.config, args.chains, args.seed, log=log)
 
     elif args.command == "anatelophase":
-        with SimulationStore(args.trajectory) as store:
+        with open_store(args.trajectory) as store:
             run_anatelophase(store, log=log, device=args.device)
 
     elif args.command == "interphase":
@@ -220,27 +226,27 @@ def main(argv=None) -> int:
             devices = rank_devices(args.shards, args.device)
             spawn(_interphase_rank, args.shards, devices, None, args.trajectory, args.profile)
         else:
-            with _profiled(args.profile, args.device), SimulationStore(args.trajectory) as store:
+            with _profiled(args.profile, args.device), open_store(args.trajectory) as store:
                 run_interphase(store, log=log, device=args.device)
 
     elif args.command == "prometaphase":
-        with SimulationStore(args.trajectory) as store:
+        with open_store(args.trajectory) as store:
             run_prometaphase(store, log=log, device=args.device)
 
     elif args.command == "transition":
         if args.mode == "interphase":
-            with SimulationStore(args.trajectory) as store:
+            with open_store(args.trajectory) as store:
                 transitions.transition_interphase(store, log=log)
         elif args.mode == "prometaphase":
-            with SimulationStore(args.trajectory) as store:
+            with open_store(args.trajectory) as store:
                 transitions.transition_prometaphase(store, log=log)
         else:
-            with SimulationStore(args.prev) as prev, SimulationStore(args.next) as nxt:
+            with open_store(args.prev) as prev, open_store(args.next) as nxt:
                 transitions.transition_cycle(prev, nxt, log=log)
 
     elif args.command == "simulate":
         run_prepare(args.output, args.config, args.chains, args.seed, log=log)
-        with SimulationStore(args.output) as store:
+        with open_store(args.output) as store:
             run_anatelophase(store, log=log, device=args.device)
             transitions.transition_interphase(store, log=log)
             run_interphase(store, log=log, device=args.device)
@@ -253,9 +259,9 @@ def main(argv=None) -> int:
             log(f"=== cycle {k}: {path} ===")
             run_prepare(path, args.config, args.chains, seed, log=log)
             if prev_path is not None:
-                with SimulationStore(prev_path) as prev, SimulationStore(path) as nxt:
+                with open_store(prev_path) as prev, open_store(path) as nxt:
                     transitions.transition_cycle(prev, nxt, log=log)
-            with SimulationStore(path) as store:
+            with open_store(path) as store:
                 run_anatelophase(store, log=log, device=args.device)
                 transitions.transition_interphase(store, log=log)
                 run_interphase(store, log=log, device=args.device)
@@ -271,12 +277,12 @@ def main(argv=None) -> int:
             seed = None if args.seed is None else args.seed + k
             log(f"=== replica {k}: {path} ===")
             run_prepare(path, args.config, args.chains, seed, log=log)
-            with SimulationStore(path) as store:
+            with open_store(path) as store:
                 run_anatelophase(store, log=log, device=args.device)
                 transitions.transition_interphase(store, log=log)
         log(f"=== ensemble interphase: {args.replicas} replicas in lock-step ===")
         with contextlib.ExitStack() as stack:
-            stores = [stack.enter_context(SimulationStore(path)) for path in paths]
+            stores = [stack.enter_context(open_store(path)) for path in paths]
             run_ensemble_interphase(stores, log=log, device=args.device)
 
     elif args.command == "analysis-help":

@@ -473,19 +473,24 @@ class WindowAccumulator:
     """The contact window on the device: tick events fold into sorted COO
     rows (``ops/contact.merge_events_acc``), and only the deduplicated window
     moves to the host, once per dump.  When the rows run out, the buffer
-    grows past the watermark with headroom and the merge is run again."""
+    grows past the watermark with headroom and the merge is run again.
+    ``events`` counts the events folded into the current window (their
+    number is known on the host: it costs no sync); a window's counts sum to
+    it."""
 
     def __init__(self, particles: int, capacity: Optional[int], device, log=print):
         self.capacity = capacity or max(1 << 16, 16 * particles)
         self.device = device
         self.log = log
         self.acc, self.rows = empty_window_acc(self.capacity, device)
+        self.events = 0
 
     def add(self, events):
         while True:
             acc, rows, overflow = merge_events_acc(self.acc, self.rows, events)
             if overflow == 0:
                 self.acc, self.rows = acc, rows
+                self.events += events.shape[0]
                 return
             self.capacity = -(-int((self.capacity + overflow) * 3 // 2) // 4096) * 4096
             self.log(f"engine: growing window accumulator to {self.capacity}")
@@ -497,6 +502,7 @@ class WindowAccumulator:
         starts afresh."""
         coo = self.acc[: self.rows].cpu().numpy()
         self.acc, self.rows = empty_window_acc(self.capacity, self.device)
+        self.events = 0
         return coo
 
 
@@ -531,7 +537,10 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     Runs on the first CUDA card unless ``device`` says otherwise; with no card
     and no such request it raises.  ``timings``, when given, receives the
     host-clock seconds and step counts of the two phases (the device is
-    synchronised before each reading).  Returns the final positions.
+    synchronised before each reading), a record of each G1 window written
+    (``windows``: its step, rows, the tick events folded into it, the
+    accumulator's rows, the seconds since the previous window) and the final
+    grid bound.  Returns the final positions.
 
     With ``mesh`` (``parallel/mesh.py``), or ``n_shards`` > 1 (a mesh of one
     replica over the process group, which must have that many ranks), the G1
@@ -650,6 +659,17 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         return save_g1_frame(store, model, step, x, semiaxes, contacts_coo,
                              mean_energy(x, step * c.timestep, semiaxes))
 
+    windows = timings.setdefault("windows", []) if timings is not None else []
+
+    def dumped(step, coo, events, capacity, seconds):
+        """Log and record a written window: its rows, the tick events folded
+        into it (its counts sum to them), the accumulator's rows, the
+        host-clock seconds since the previous window."""
+        windows.append(dict(step=step, rows=len(coo), events=int(events),
+                            capacity=capacity, seconds=seconds))
+        log(f"window at step {step}: {len(coo)} pairs from {int(events)} events"
+            + ("" if capacity is None else f", accumulator capacity {capacity}"))
+
     if checkpoint is not None:
         x = torch.as_tensor(checkpoint["positions"], dtype=dtype, device=device)
         semiaxes = torch.as_tensor(checkpoint["semiaxes"], dtype=dtype, device=device)
@@ -662,9 +682,11 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         # (step 0 satisfies both cadences), then the wall gets its first
         # (reaction-free) update.
         semiaxes = semiaxes0
-        coo0 = merge_window([events_to_host(model.contact_events_tick(x, 0))])
+        events0 = model.contact_events_tick(x, 0)
+        coo0 = merge_window([events_to_host(events0)])
         ctx = save_frame(0, x, semiaxes, coo0)
         log(progress_line("interphase", 0, t=0.0, energy=ctx.mean_energy))
+        dumped(0, coo0, events0.shape[0], None, 0.0)
         semiaxes = semiaxes + c.timestep * c.wall_mobility * (
             0.0 - model.wall_spring * semiaxes
         )
@@ -677,7 +699,7 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
 
     window = WindowAccumulator(n, settings.acc_capacity, device, log)
     state = (x, generator, semiaxes)
-    t_g1 = clock()
+    t_g1 = t_window = clock()
     wall_t0 = _time.perf_counter()
     steps_done = 0
 
@@ -689,7 +711,13 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         refresh_bound(x)
         step = start + sampling
 
-        contacts_coo = window.take() if step % window_steps == 0 else None
+        contacts_coo = None
+        if step % window_steps == 0:
+            events, capacity = window.events, window.capacity
+            contacts_coo = window.take()
+            t_now = clock()
+            dumped(step, contacts_coo, events, capacity, t_now - t_window)
+            t_window = t_now
 
         ctx = save_frame(step, x, semiaxes, contacts_coo)
         steps_done += sampling
@@ -718,6 +746,7 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     if timings is not None:
         timings["g1_seconds"] = clock() - t_g1
         timings["g1_steps"] = steps_done
+        timings["grid_bound"] = model.bound
 
     store.clear_checkpoint()
     return to_host(state[0])

@@ -111,7 +111,7 @@ def sharded_forces(config, arrays, settings, x, semiaxes, step, bound=None) -> d
 
 def interphase(target, settings=None, n_shards=None) -> dict:
     """``run_interphase`` on every rank: the first rank with the store
-    (``target`` is the path of an HDF5 file, which only it opens, or a
+    (``target`` is the path of a store, which only it opens, or a
     ``MemoryStore``, which it hands back), the others with None.  With
     ``n_shards`` the call names the shard count; without, it is given the
     mesh of one replica over the group."""
@@ -120,9 +120,9 @@ def interphase(target, settings=None, n_shards=None) -> dict:
     store = None
     if mesh.shard == 0:
         if isinstance(target, str):
-            from ..store import SimulationStore
+            from ..store import open_store
 
-            store = SimulationStore(target)
+            store = open_store(target)
         else:
             store = target
     pk.ab_pair_forces.launches = 0
@@ -168,9 +168,9 @@ def ensemble(targets, settings=None) -> dict:
     stores = [None] * len(targets)
     for k in mine:
         if isinstance(targets[k], str):
-            from ..store import SimulationStore
+            from ..store import open_store
 
-            stores[k] = SimulationStore(targets[k])
+            stores[k] = open_store(targets[k])
         else:
             stores[k] = targets[k]
     log, timings = [], {}

@@ -1,4 +1,5 @@
-"""Trajectory store with the reference-exact schema: HDF5 file or memory.
+"""Trajectory store with the reference-exact schema: HDF5 file, directory or
+memory.
 
 One store per simulated cell cycle.  Schema ground truth (SURVEY.md §2.3;
 reference ``src/simulation/common/simulation_store.{hpp,cpp}`` and
@@ -27,17 +28,23 @@ Relaxation soft-links interphase metadata; telophase soft-links anaphase
 metadata (prepare.cpp:435-444, 489-496).  Positions are mantissa-quantized to
 16 fraction bits before storing (simulation_store.cpp:22-33,197-215).
 
-Two backends share every typed view: :class:`SimulationStore` over an HDF5
+Three backends share every typed view: :class:`SimulationStore` over an HDF5
 file (``h5py`` is imported when a store is opened or prepared, not when this
-module is imported) and :class:`MemoryStore` over a dict keyed by the same
-paths, holding the same dtypes and the same quantized positions, for machines
-without ``h5py``.
+module is imported), :class:`DirectoryStore` over a directory with one file
+per HDF5 path, and :class:`MemoryStore` over a dict keyed by the same paths.
+The last two hold the same dtypes and the same quantized positions, for
+machines without ``h5py``; :func:`copy_store` turns either into the HDF5 file.
+:func:`open_store` picks the backend from the path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -55,6 +62,23 @@ from .topology import (
 POSITION_FRACTION_BITS = 16
 POSITION_COMPRESSION = 6
 CONTACT_COMPRESSION = 4
+
+
+_FRAME_DATASET = re.compile(r"^/stages/[^/]+/\d+/(positions|contacts)$")
+
+
+def _filters(path: str, data: np.ndarray) -> dict:
+    """HDF5 filters of a dataset, by its path: a frame's positions (gzip 6)
+    and contacts (gzip 4 + scaleoffset 0), as the reference writes them;
+    nothing for any other dataset.  The other backends ignore them."""
+    match = _FRAME_DATASET.match(path)
+    if match is None:
+        return {}
+    if match.group(1) == "positions":
+        return dict(compression="gzip", compression_opts=POSITION_COMPRESSION,
+                    chunks=data.shape if data.size else None)
+    return dict(compression="gzip", compression_opts=CONTACT_COMPRESSION,
+                scaleoffset=0, chunks=data.shape)
 
 
 def quantize_f64(values: np.ndarray, bits: int) -> np.ndarray:
@@ -134,14 +158,15 @@ class StageDesign:
 
 
 class _StoreViews:
-    """Typed read/write views shared by the HDF5 and the in-memory store.
+    """Typed read/write views shared by the HDF5, directory and in-memory stores.
 
     Mirrors the reference ``simulation_store`` class (simulation_store.hpp:65-111)
     with the same per-stage namespace convention: ``set_stage`` selects the
     ``/stages/<stage>/`` prefix for frame-level I/O.  A backend supplies the
     primitives ``_has``, ``_get``, ``_get_text``, ``_get_texts``, ``_put``,
     ``_put_text``, ``_put_texts``, ``_put_enum``, ``_get_enum``, ``_remove``,
-    ``_names``, ``_link``, ``flush`` and ``close``.
+    ``_names``, ``_link``, ``_contents`` (every dataset with its kind, and the
+    links, for :func:`copy_store`), ``flush`` and ``close``.
     """
 
     _stage = ""
@@ -264,13 +289,8 @@ class _StoreViews:
 
     def save_positions(self, step: int, positions: np.ndarray):
         data = quantize_positions(positions).astype(np.float32)
-        self._put(
-            self._data_path(step, "positions"),
-            data,
-            compression="gzip",
-            compression_opts=POSITION_COMPRESSION,
-            chunks=data.shape if data.size else None,
-        )
+        path = self._data_path(step, "positions")
+        self._put(path, data, **_filters(path, data))
 
     def load_positions(self, step: int) -> np.ndarray:
         return self._get(self._data_path(step, "positions")).astype(np.float64)
@@ -287,11 +307,18 @@ class _StoreViews:
     # -- only checkpoint granularity is whole stages; SURVEY.md §5.3-5.4) ----
 
     def save_checkpoint(self, step: int, arrays: dict):
-        """Persist a snapshot of the step state under <stage>/.checkpoint."""
+        """Persist a snapshot of the step state under <stage>/.checkpoint.
+
+        ``step`` goes first out and last in: a process killed in between
+        leaves no checkpoint (the stage starts over), never a step beside
+        arrays of another step."""
         base = self._data_path(".checkpoint")
-        self._put(base + "/step", np.int64(step))
+        self._remove(base + "/step")
+        self.flush()
         for name, value in arrays.items():
             self._put(base + "/" + name, np.asarray(value))
+        self.flush()
+        self._put(base + "/step", np.int64(step))
         self.flush()
 
     def load_checkpoint(self) -> Optional[dict]:
@@ -313,14 +340,8 @@ class _StoreViews:
         contacts = np.asarray(contacts, dtype=np.int32).reshape(-1, 3)
         if len(contacts) == 0:
             return
-        self._put(
-            self._data_path(step, "contacts"),
-            contacts,
-            compression="gzip",
-            compression_opts=CONTACT_COMPRESSION,
-            scaleoffset=0,
-            chunks=contacts.shape,
-        )
+        path = self._data_path(step, "contacts")
+        self._put(path, contacts, **_filters(path, contacts))
 
     def load_contacts(self, step: int) -> Optional[np.ndarray]:
         path = self._data_path(step, "contacts")
@@ -403,6 +424,29 @@ class SimulationStore(_StoreViews):
             self._file.require_group(parent)
         self._file[new] = self._h5py.SoftLink(existing)
 
+    def _contents(self):
+        """(datasets as [(path, kind)], links as {new: existing}); a kind is
+        "array", "text", "texts" or "enum"."""
+        datasets, links = [], {}
+
+        def visit(name, obj):
+            if isinstance(obj, self._h5py.Group):
+                for key in obj:
+                    link = obj.get(key, getlink=True)
+                    if isinstance(link, self._h5py.SoftLink):
+                        links[f"/{name}/{key}"] = link.path
+                return
+            if self._h5py.check_enum_dtype(obj.dtype) is not None:
+                kind = "enum"
+            elif self._h5py.check_string_dtype(obj.dtype) is not None:
+                kind = "text" if obj.shape == () else "texts"
+            else:
+                kind = "array"
+            datasets.append(("/" + name, kind))
+
+        self._file.visititems(visit)
+        return datasets, links
+
 
 class MemoryStore(_StoreViews):
     """The same views over a dict keyed by the HDF5 paths.
@@ -440,7 +484,7 @@ class MemoryStore(_StoreViews):
     def _get_texts(self, path: str) -> list[str]:
         return list(self._data[self._resolve(path)])
 
-    def _put(self, path: str, data, **_filters):
+    def _put(self, path: str, data, **_hdf5_filters):
         self._data[path] = np.array(data)
 
     def _put_text(self, path: str, text: str):
@@ -470,6 +514,218 @@ class MemoryStore(_StoreViews):
     def _link(self, existing: str, new: str):
         self._links[new] = existing
 
+    def _contents(self):
+        kinds = {str: "text", list: "texts", tuple: "enum"}
+        return ([(path, kinds.get(type(value), "array")) for path, value in self._data.items()],
+                dict(self._links))
+
+
+class DirectoryStore(_StoreViews):
+    """The same views over a directory: one file per HDF5 path.
+
+    ``/a/b/c`` is the file ``a/b/c.npy`` under the root for an array or a 0-d
+    scalar (its dtype kept exactly), ``a/b/c.txt`` for a string, and
+    ``a/b/c.json`` for a list of strings; an enum dataset is its ``.npy``
+    values beside its mapping in ``a/b/c.enum.json``.  Groups are
+    directories; the soft links are one JSON file, ``.links.json``, at the
+    root.  Every file is written under a temporary name and moved into place
+    with ``os.replace``, so a process killed mid-write leaves the old file or
+    the new one, never part of one; temporary leftovers (``*.tmp``) are never
+    read.  No compression; ``flush`` and ``close`` have nothing to do.
+
+    ``mode``: "r" reads only, "r+" reads and writes an existing store, "w"
+    creates the directory or empties the store held in it (only the entries
+    a store writes are removed).
+    """
+
+    _LINKS = ".links.json"
+    _SUFFIXES = {".npy": "array", ".txt": "text", ".json": "texts"}
+    _ENUM = ".enum.json"
+
+    def __init__(self, root: str, mode: str = "r+"):
+        if mode not in ("r", "r+", "w"):
+            raise ValueError(f"mode {mode!r}: expected 'r', 'r+' or 'w'")
+        self.root = os.path.abspath(root)
+        self._writable = mode != "r"
+        self._stage = ""
+        if mode == "w":
+            os.makedirs(self.root, exist_ok=True)
+            for entry in ("metadata", "stages"):
+                shutil.rmtree(os.path.join(self.root, entry), ignore_errors=True)
+            self._remove_file(os.path.join(self.root, self._LINKS))
+        elif not os.path.isdir(self.root):
+            raise FileNotFoundError(f"no directory store at {root}")
+        links = os.path.join(self.root, self._LINKS)
+        self._links = {}
+        if os.path.exists(links):
+            with open(links) as f:
+                self._links = json.load(f)
+
+    def close(self):
+        pass
+
+    def flush(self):
+        pass
+
+    # -- files ---------------------------------------------------------------
+
+    def _file(self, path: str) -> str:
+        return os.path.join(self.root, *path.strip("/").split("/"))
+
+    def _resolve(self, path: str) -> str:
+        return self._links.get(path, path)
+
+    def _found(self, path: str):
+        """(file, kind) of the dataset at ``path``, or (None, None)."""
+        base = self._file(self._resolve(path))
+        for suffix, kind in self._SUFFIXES.items():
+            if os.path.isfile(base + suffix):
+                if kind == "array" and os.path.isfile(base + self._ENUM):
+                    kind = "enum"
+                return base + suffix, kind
+        return None, None
+
+    def _replace(self, target: str, write):
+        """``write(file object)`` into a temporary file beside ``target``,
+        then move it over ``target``."""
+        if not self._writable:
+            raise OSError(f"directory store {self.root} is open read-only")
+        folder = os.path.dirname(target)
+        os.makedirs(folder, exist_ok=True)
+        handle, temporary = tempfile.mkstemp(
+            dir=folder, prefix="." + os.path.basename(target) + ".", suffix=".tmp")
+        try:
+            with os.fdopen(handle, "wb") as f:
+                write(f)
+            os.replace(temporary, target)
+        except BaseException:
+            self._remove_file(temporary)
+            raise
+
+    @staticmethod
+    def _remove_file(name: str):
+        try:
+            os.remove(name)
+        except FileNotFoundError:
+            pass
+
+    @staticmethod
+    def _json_bytes(value) -> bytes:
+        return json.dumps(value).encode()
+
+    # -- primitives ----------------------------------------------------------
+
+    def _has(self, path: str) -> bool:
+        return (self._found(path)[0] is not None
+                or os.path.isdir(self._file(self._resolve(path))))
+
+    def _get(self, path: str):
+        name, kind = self._found(path)
+        if name is None:
+            raise KeyError(path)
+        if kind in ("array", "enum"):
+            value = np.load(name, allow_pickle=False)
+            return value[()] if value.ndim == 0 else value
+        with open(name, encoding="utf-8") as f:
+            return f.read() if kind == "text" else json.load(f)
+
+    _get_text = _get
+    _get_texts = _get
+
+    def _put(self, path: str, data, **_hdf5_filters):
+        data = np.asarray(data)
+        self._replace(self._file(path) + ".npy", lambda f: np.save(f, data, allow_pickle=False))
+
+    def _put_text(self, path: str, text: str):
+        self._replace(self._file(path) + ".txt", lambda f: f.write(str(text).encode("utf-8")))
+
+    def _put_texts(self, path: str, texts):
+        texts = [str(t) for t in texts]
+        self._replace(self._file(path) + ".json", lambda f: f.write(self._json_bytes(texts)))
+
+    def _put_enum(self, path: str, values, mapping: dict):
+        values = np.asarray(values, np.int32)
+        mapping = {str(k): int(v) for k, v in mapping.items()}
+        self._replace(self._file(path) + self._ENUM,
+                      lambda f: f.write(self._json_bytes(mapping)))
+        self._put(path, values)
+
+    def _get_enum(self, path: str):
+        name, kind = self._found(path)
+        if kind != "enum":
+            raise KeyError(f"{path} is not an enum dataset")
+        with open(name[: -len(".npy")] + self._ENUM) as f:
+            mapping = json.load(f)
+        return np.load(name, allow_pickle=False).astype(np.int32), mapping
+
+    def _remove(self, path: str):
+        base = self._file(path)
+        for suffix in (*self._SUFFIXES, self._ENUM):
+            self._remove_file(base + suffix)
+        shutil.rmtree(base, ignore_errors=True)
+
+    def _names(self, path: str) -> list[str]:
+        folder = self._file(path)
+        names = set()
+        for entry in os.listdir(folder) if os.path.isdir(folder) else ():
+            if os.path.isdir(os.path.join(folder, entry)):
+                names.add(entry)
+                continue
+            for suffix in self._SUFFIXES:
+                if entry.endswith(suffix) and not entry.endswith(self._ENUM):
+                    names.add(entry[: -len(suffix)])
+        return sorted(names)
+
+    def _link(self, existing: str, new: str):
+        links = dict(self._links, **{new: existing})
+        self._replace(os.path.join(self.root, self._LINKS),
+                      lambda f: f.write(self._json_bytes(links)))
+        self._links = links
+
+    def _contents(self):
+        datasets = []
+        for top, folders, files in os.walk(self.root):
+            folders.sort()
+            group = os.path.relpath(top, self.root).replace(os.sep, "/")
+            group = "" if group == "." else "/" + group
+            for entry in sorted(files):
+                if entry.endswith(self._ENUM) or (top == self.root and entry == self._LINKS):
+                    continue
+                for suffix in self._SUFFIXES:
+                    if entry.endswith(suffix):
+                        path = group + "/" + entry[: -len(suffix)]
+                        datasets.append((path, self._found(path)[1]))
+        return datasets, dict(self._links)
+
+
+def open_store(path: str, mode: str = "r+"):
+    """The store at ``path``: a :class:`DirectoryStore` for an existing
+    directory or a path that ends in ``/``, else the HDF5 file
+    (:class:`SimulationStore`)."""
+    if path.endswith("/") or os.path.isdir(path):
+        return DirectoryStore(path, mode)
+    return SimulationStore(path, mode)
+
+
+def copy_store(src, dst):
+    """Copy every dataset of ``src`` into ``dst`` with its dtype (positions
+    and contacts with the reference's HDF5 filters), every enum mapping and
+    every soft link; both are open stores of any backend."""
+    datasets, links = src._contents()
+    for path, kind in datasets:
+        if kind == "enum":
+            dst._put_enum(path, *src._get_enum(path))
+        elif kind == "text":
+            dst._put_text(path, src._get_text(path))
+        elif kind == "texts":
+            dst._put_texts(path, src._get_texts(path))
+        else:
+            data = np.asarray(src._get(path))
+            dst._put(path, data, **_filters(path, data))
+    for new, existing in links.items():
+        dst._link(existing, new)
+    dst.flush()
+
 
 def prepare_store(
     target,
@@ -481,12 +737,12 @@ def prepare_store(
     """Fill a fresh store with all /metadata and /stages/*/metadata datasets,
     replicating the reference prepare pipeline's writes (prepare.cpp:373-562).
 
-    ``target`` is the name of the HDF5 file to create, or an empty
-    :class:`MemoryStore`, which is filled in place."""
+    ``target`` is the path of the store to create (:func:`open_store`), or
+    an empty :class:`MemoryStore`, which is filled in place."""
     if isinstance(target, MemoryStore):
         _write_metadata(target, config, chains, topology, master_seed)
         return
-    with SimulationStore(target, "w") as store:
+    with open_store(target, "w") as store:
         _write_metadata(store, config, chains, topology, master_seed)
 
 

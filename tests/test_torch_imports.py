@@ -12,6 +12,8 @@ MODULES = [
     "genome_cycle_tpu_torch",
     "genome_cycle_tpu_torch.cli",
     "genome_cycle_tpu_torch.convert",
+    "genome_cycle_tpu_torch.store",
+    "genome_cycle_tpu_torch.production",
     "genome_cycle_tpu_torch.models.anatelophase",
     "genome_cycle_tpu_torch.models.interphase",
     "genome_cycle_tpu_torch.models.prometaphase",
@@ -33,6 +35,7 @@ MODULES = [
     "genome_cycle_tpu_torch.analysis.annotate",
     "genome_cycle_tpu_torch.analysis.gsdio",
     "genome_cycle_tpu_torch.analysis.dumpgsd",
+    "genome_cycle_tpu_torch.analysis.memory",
     # The scripts at the root that run the port on a card.
     "chip_smoke",
     "profile_torch_step",
