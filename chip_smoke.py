@@ -9,14 +9,23 @@ It needs one CUDA card and ``nvcc``; without a card it exits non-zero and
 prints no result.  It
 
 1. names the card (``nvidia-smi``) and the torch/CUDA versions;
-2. builds the port's CUDA source from ``genome_cycle_tpu_torch/csrc`` into
-   ``build/`` and prints what ``ptxas`` says about its kernels: the pair-force
-   kernel the package runs and its first version, kept as a yardstick;
+2. builds the port's CUDA sources from ``genome_cycle_tpu_torch/csrc`` into
+   ``build/``, one ``nvcc`` a source, all at once, and prints what ``ptxas``
+   says about their kernels: the pair-force kernel the package runs and its
+   first version, kept as a yardstick (``ab_pair_forces.cu``); the contact
+   tick (``contact_tick.cu``); the rest of a step — bonds, wall, update — and
+   the update alone (``step_rest.cu``);
 3. holds the kernel's wrapper against its plain PyTorch version on the card
    (and the first version too): at 300 beads, at inputs made for the kernel's
    control flow, and at three structures of the main path's 59,610 particles;
    checks that two launches give the same bits; and times new and first
-   version in turns;
+   version in turns; then phase "step kernels": the tick (also forced to
+   overflow and run again), the rest kernel with its wall reaction, the
+   update kernel and the fused G1 launch against their plain versions at the
+   same three structures and on the ensemble's four replicas stacked, timed
+   beside their bounds; 200 G1 steps at T = 0 through the kernels against the
+   plain composition, step for step; and the device kernels a G1 step, a
+   relaxation step and a tick start (``torch.profiler``);
 4. drives the port's main path at full width, a whole cell cycle of the
    diploid hg38 nucleus at 100 kb per bead through the entry points the CLI
    command ``cycles`` chains — ``run_prepare``, ``run_anatelophase``,
@@ -67,8 +76,8 @@ runs instead the reference-default cell cycle (``examples/config_production.json
 into a scratch directory, keeps ``summary.json``, ``pc1.tsv``, ``aux.json``
 and the log in ``--output`` (default ``build/production/``), and checks the
 trajectory (every stage's frames, 701 G1 frames and 71 windows at full depth), each window's
-counts against its ticks' events, the kernel against its plain version at
-late-G1 structures, and the counts against the JAX package's run of the same
+counts against its ticks' events, the kernels against their plain versions
+at late-G1 structures, and the counts against the JAX package's run of the same
 workload.  ``--g1-steps`` cuts the G1 (the only cut; the JAX counts then do not
 apply); ``--seconds`` cuts it to what fits that many seconds, by a short
 calibration run.  At full depth it needs an hour or more of the card.
@@ -144,15 +153,20 @@ CONFIG_STORE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 600
                 "interphase": {"steps": 6000, "relaxation_steps": 2000,
                                "contactmap_output_window": 2}}
 STORE_RESUME_STEP = 2000
-# Runs a module as ``python -m`` does, then prints the pair kernel's launches
-# in that process (the count a subprocess cannot hand back otherwise).
-LAUNCHER = ("import runpy, sys\n"
-            "from genome_cycle_tpu_torch.ops import pair_kernels as pk\n"
+# Runs a module as ``python -m`` does, then prints the launches of the pair
+# kernel and of the step kernels in that process (the counts a subprocess
+# cannot hand back otherwise).
+LAUNCHER = ("import json, runpy, sys\n"
+            "from genome_cycle_tpu_torch.ops import contact, pair_kernels as pk, step_rest\n"
             "sys.argv = sys.argv[1:]\n"
             "try:\n"
             "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
             "finally:\n"
-            "    print(f'launches {pk.ab_pair_forces.launches}', flush=True)\n")
+            "    print(f'launches {pk.ab_pair_forces.launches}', flush=True)\n"
+            "    print('step kernel launches ' + json.dumps({\n"
+            "        'contact_tick': contact.contact_events.launches,\n"
+            "        'step_rest': step_rest.launch_rest.launches,\n"
+            "        'bd_update': step_rest.launch_update.launches}), flush=True)\n")
 # `--production`: the reference defaults (examples/config_production.json)
 # into a scratch directory outside the output directory, which keeps
 # summary.json, pc1.tsv, aux.json and the log.  G1 frames whose structures the
@@ -569,9 +583,10 @@ def run_ensemble(workdir, device, run_log):
     if launches != steps:
         fail("ensemble", f"the pair kernel was launched {launches} times in {steps} steps: "
                          "not once a step for all replicas")
-    finals = []
+    finals, semiaxes = [], []
     for k, store in enumerate(stores):
         _, x_final, ctx = check_output(store, n, icfg)
+        semiaxes.append(ctx.wall_semiaxes)
         if not np.allclose(final[k], x_final, rtol=1e-4, atol=1e-4):
             fail("ensemble", f"replica {k}: returned positions differ from its last stored frame")
         phase("ensemble", f"replica {k}: frames, windows, positions and semiaxes are sound; "
@@ -582,7 +597,8 @@ def run_ensemble(workdir, device, run_log):
     phase("ensemble", f"final positions of any two replicas differ by up to {apart:.4f} at least")
     if not apart > 1e-2:
         fail("ensemble", "two replicas ended in the same structure")
-    return dict(final=np.stack(finals), launches=launches, peak_bytes=peak_bytes,
+    return dict(final=np.stack(finals), semiaxes=np.asarray(semiaxes, np.float32),
+                launches=launches, peak_bytes=peak_bytes,
                 timings=timings, config=config, n=n, design=design, stores=stores)
 
 
@@ -1228,6 +1244,12 @@ def run_cli(args, log_path, timeout):
     return int(re.findall(r"^launches (\d+)$", text, re.M)[-1])
 
 
+def logged_step_launches(log_path):
+    """The step kernels' launches a ``LAUNCHER`` process printed last."""
+    text = pathlib.Path(log_path).read_text()
+    return json.loads(re.findall(r"^step kernel launches (.*)$", text, re.M)[-1])
+
+
 def run_store_phase(workdir):
     """Phase "store": the port's CLI as a user runs it, on the card, into a
     directory store (no h5py); the interphase killed with SIGKILL as soon as
@@ -1458,6 +1480,8 @@ def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_
                 late = (LATE_G1_FRAMES[0], steps[-1] // 2000 * 1000, steps[-1])
             late = sorted(set(late) & set(steps))
             shapes = {}
+            step_errors = StepErrors()
+            main_step_launches = logged_step_launches(log_path)
             for step in late:
                 x = torch.as_tensor(store.load_positions(step), dtype=torch.float32, device=device)
                 model.update_bound(float(x.abs().max()))
@@ -1466,7 +1490,17 @@ def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_
                 shapes[f"G1 step {step}"] = kernel_at(
                     label, model.cell_layout(x), kernel_params(ctx.core_scale, icfg), pk, errors,
                     model.n)
+                semi = torch.as_tensor(ctx.wall_semiaxes, dtype=torch.float32, device=device)
+                step_timed = check_step_kernels(label, model, x, ctx.core_scale, ctx.bond_scale,
+                                                semi, step_errors, time_them=step == late[-1])
             checked = check_production(store, summary, launches, pk)
+            phase("production", f"step kernel launches in the production process: "
+                                f"{main_step_launches}")
+            if main_step_launches["step_rest"] < icfg.relaxation_steps + icfg.steps \
+                    or main_step_launches["contact_tick"] < icfg.steps // \
+                    icfg.contactmap_update_interval \
+                    or main_step_launches["bd_update"] < icfg.relaxation_steps:
+                fail("production", "the step kernels were not launched once a step (a tick)")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -1488,7 +1522,7 @@ def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_
         "library_ms": None,
         "shapes": shapes,
         "production": checked,
-    }]}), flush=True)
+    }] + step_kernel_entries(main_step_launches, step_errors, step_timed)}), flush=True)
 
 
 def check_production(store, summary, launches, pk):
@@ -1555,6 +1589,369 @@ def check_production(store, summary, launches, pk):
     return counts
 
 
+# ---- the step kernels: the contact tick, the rest (bonds + wall, with the
+# update and the wall ODE in G1) and the update alone ------------------------
+#
+# Held against their plain versions on the same inputs: the tick's pair sets
+# equal (r2 is formed in one fixed order on both sides), also after a forced
+# overflow (a capacity of TICK_FORCED_ROWS rows) and its rerun; forces,
+# reaction and positions within STEP_TOLERANCE of the largest magnitude of
+# the plain version's (the wall's derivatives in closed form against
+# autograd, float32 sums in another order), energies ENERGY_TOLERANCE
+# relative; STEP_STEPS steps at T = 0 through the kernels, each against the
+# plain composition's step from the same state (plain pair force, nucleolar
+# terms, bonds, autograd wall, update, wall ODE), positions within
+# STEP_TOLERANCE of max|x|; the two whole trajectories within TWIN_FACTOR
+# times a twin's distance (see zero_temperature_steps).
+STEP_TOLERANCE = 1e-5
+STEP_STEPS = 200
+TICK_FORCED_ROWS = 4096
+# Bytes the rest kernel moves in G1 and the update kernel alone: for each
+# bead of each replica its position, force and noise read once and its new
+# position written; for each bead once, the rows all replicas share (the
+# rest kernel: mobility, two masks, three bond rows, two wall weights; the
+# update: the mobility).  Operations: the tick's distance test for each
+# candidate of the half stencil.
+STEP_BYTES_PER_REPLICA_BEAD = 12 + 12 + 12 + 12
+REST_SHARED_BYTES_PER_BEAD = 4 + 2 + 12 + 8
+UPDATE_SHARED_BYTES_PER_BEAD = 4
+TICK_BYTES_PER_ROW = 16 + 4 + 8
+TICK_BYTES_PER_EVENT = 12
+STEP_KERNELS = {
+    # name: (source, what it replaces)
+    "contact_tick": ("genome_cycle_tpu_torch/csrc/contact_tick.cu",
+                     "JAX: XLA-fused, genome_cycle_tpu/ops/block_pairs.py:447 "
+                     "(block_contact_events)"),
+    "step_rest": ("genome_cycle_tpu_torch/csrc/step_rest.cu",
+                  "JAX: XLA-fused, genome_cycle_tpu/models/interphase.py:688 (_bd_step4: "
+                  "ops/bonded.py:40 shift_bond_forces, ops/wall.py:57 wall_forces, the update, "
+                  "the wall ODE)"),
+    "bd_update": ("genome_cycle_tpu_torch/csrc/step_rest.cu",
+                  "JAX: XLA-fused, genome_cycle_tpu/ops/integrator.py:32 (bd_update)"),
+}
+
+
+def step_launches():
+    """The launches the step kernels' wrappers have counted in this process."""
+    from genome_cycle_tpu_torch.ops import contact, step_rest
+
+    return {"contact_tick": contact.contact_events.launches,
+            "step_rest": step_rest.launch_rest.launches,
+            "bd_update": step_rest.launch_update.launches}
+
+
+def set_step_launches(counts):
+    from genome_cycle_tpu_torch.ops import contact, step_rest
+
+    contact.contact_events.launches = counts["contact_tick"]
+    step_rest.launch_rest.launches = counts["step_rest"]
+    step_rest.launch_update.launches = counts["bd_update"]
+
+
+def device_launches(fn, calls):
+    """Device kernels (memory copies and sets included) that ``fn`` starts,
+    per call, counted by ``torch.profiler`` over ``calls`` calls after one
+    unprofiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    count = 0
+    for event in prof.key_averages():
+        if "CUDA" in str(getattr(event, "device_type", "")) and (
+                getattr(event, "self_device_time_total", 0)
+                or getattr(event, "self_cuda_time_total", 0)):
+            count += event.count
+    return count / calls
+
+
+def pair_keys(events):
+    """Sorted int64 keys lo << 32 | hi of (E, 3) event rows."""
+    ev = events.to(torch.int64)
+    return torch.sort((ev[:, 0] << 32) | ev[:, 1]).values
+
+
+def half_stencil_candidates(layout):
+    """Candidates (i, j > i) the tick tests: the half stencil's ranges of
+    every real row, the own cell's rows up to i left out."""
+    from genome_cycle_tpu_torch.ops.pair_kernels import stencil_ranges
+
+    total = sum(int(count.sum()) for _, count in stencil_ranges(layout, half=True))
+    real = int(layout.cell_start[-1])
+    rows = torch.arange(real, device=layout.cell_id.device)
+    own = rows - layout.cell_start.to(torch.int64)[layout.cell_id[:real].to(torch.int64)]
+    return total - int((own + 1).sum())
+
+
+class StepErrors:
+    """Largest differences of the step kernels from their plain versions."""
+
+    def __init__(self):
+        self.max_abs = {name: 0.0 for name in STEP_KERNELS}
+
+
+def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_them=False):
+    """The tick, the rest kernel, the update kernel and the fused G1 launch
+    against their plain versions at positions ``x`` (N, 3) or (R, N, 3),
+    with the semiaxes of the structure; see STEP_TOLERANCE.  Fails beyond the
+    tolerances.  With ``time_them``, the kernels and their plain versions
+    timed, and the bounds of these inputs; returns those."""
+    from genome_cycle_tpu_torch.ops import contact, step_rest
+    from genome_cycle_tpu_torch.ops.integrator import BDParams, bd_update, bd_update_reference
+
+    c = model.config
+    name = f"step kernels: {label}"
+    counts = step_launches()
+    # -- the tick, with a fresh capacity and with one it must outgrow --------
+    layout = model.cell_layout(x)
+    cutoff = c.contactmap_distance * core
+    want = contact.contact_events_reference(layout, cutoff)
+    keys = pair_keys(want)
+    for rows in (None, TICK_FORCED_ROWS):
+        before = contact.contact_events.launches
+        capacity = contact.EventCapacity(rows)
+        got = contact.contact_events(layout, cutoff, capacity=capacity)
+        runs = contact.contact_events.launches - before
+        equal = torch.equal(pair_keys(got), keys)
+        phase(name, f"tick: {len(got)} pairs at cutoff {cutoff:.4f}, the plain search "
+                    f"{len(want)}; sets equal: {equal}; capacity {rows or 16 * layout.n} -> "
+                    f"{capacity.rows} rows, {runs} launches")
+        if not equal:
+            fail(name, "the tick kernel's pair set differs from the plain search's")
+        if rows is not None and len(want) > rows and runs != 2:
+            fail(name, "the forced overflow did not grow the capacity and run again")
+    # -- the rest kernel (bonds + wall) into a force buffer -------------------
+    # Held against the plain version in float64 on the same inputs: the wall
+    # distance is a small difference near the wall, and the plain version in
+    # float32 lies up to about 1e-5 of max|F| from it (read here, not held).
+    pair, _ = model.pair_forces_full(x, core)
+    forces0, _ = model.nucleolar_forces(x, bond, pair, 0.0)
+    bonds, wall = model.bond_rows(bond), model.wall_rows(semiaxes, core)
+    kernel = [step_rest.rest(x, forces0.clone(), bonds, wall, with_energy=True)
+              for _ in range(2)]
+    wide = step_rest.rest_reference(x.double(), forces0.double(), bonds,
+                                    wall._replace(semiaxes=semiaxes.double()), with_energy=True)
+    plain = step_rest.rest_reference(x, forces0, bonds, wall, with_energy=True)
+    f_p, r_p = plain.out, plain.reaction
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kernel[0][:4], kernel[1][:4])):
+        fail(name, "two launches of the rest kernel differ")
+    f_k, r_k = kernel[0].out, kernel[0].reaction
+    e_k = float(kernel[0].bonded_energy + kernel[0].wall_energy)
+    e_w = float(wide.bonded_energy + wide.wall_energy)
+    fmax, rmax = float(wide.out.abs().max()), float(wide.reaction.abs().max())
+    df, dr = float((f_k - wide.out).abs().max()), float((r_k - wide.reaction).abs().max())
+    df32 = float((f_p - wide.out).abs().max())
+    dr32 = float((r_p - wide.reaction).abs().max())
+    e_rel = abs(e_k - e_w) / max(abs(e_w), 1e-30)
+    phase(name, f"rest kernel against the plain version in float64: max|dF| {df:.3e} of "
+                f"max|F| {fmax:.3e} (the plain version in float32: {df32:.3e}); reaction "
+                f"{r_k.cpu().numpy().round(3).tolist()}, max diff {dr:.3e} of {rmax:.3e} "
+                f"(float32 autograd: {dr32:.3e}); bonded + wall energy {e_k:.6e} against "
+                f"{e_w:.6e} (rel {e_rel:.2e}); two launches equal to the bit")
+    if not (df <= STEP_TOLERANCE * fmax and dr <= STEP_TOLERANCE * rmax
+            and e_rel <= ENERGY_TOLERANCE):
+        fail(name, "the rest kernel differs from its plain version beyond the tolerances")
+    step_errors.max_abs["step_rest"] = max(step_errors.max_abs["step_rest"], df)
+    # -- the update alone, with and without the displacement limit ------------
+    generator = torch.Generator(device=x.device)
+    generator.manual_seed(5)
+    noise = torch.randn(x.shape, generator=generator, device=x.device)
+    worst = 0.0
+    for spacestep in (None, c.relaxation_spacestep):
+        params = BDParams(c.temperature, c.timestep, spacestep)
+        got = bd_update(x, f_p, model.mobility, None, params, noise=noise)
+        plain = bd_update_reference(x, f_p, model.mobility, None, params, noise=noise)
+        dx, xmax = float((got - plain).abs().max()), float(plain.abs().max())
+        moved = float((plain - x).abs().max())
+        phase(name, f"update kernel (spacestep {spacestep}): max|dx| {dx:.3e}, max|x| "
+                    f"{xmax:.3f}, largest move {moved:.3e}")
+        if not dx <= STEP_TOLERANCE * xmax:
+            fail(name, "the update kernel differs from its plain version")
+        worst = max(worst, dx)
+    step_errors.max_abs["bd_update"] = max(step_errors.max_abs["bd_update"], worst)
+    # -- the fused G1 launch: bonds + wall + update + wall ODE -----------------
+    dt = c.timestep
+    update = step_rest.UpdateRows(model.mobility, noise, c.temperature, dt, dt * c.wall_mobility,
+                                  tuple(c.wall_semiaxes_spring))
+    fused = step_rest.rest(x, forces0, bonds, wall, update)
+    plain_x = bd_update_reference(x, f_p, model.mobility, None, BDParams(c.temperature, dt),
+                                  noise=noise)
+    plain_semi = semiaxes + dt * c.wall_mobility * (r_p - model.wall_spring * semiaxes)
+    dx = float((fused.out - plain_x).abs().max())
+    ds = float((fused.semiaxes - plain_semi).abs().max())
+    phase(name, f"fused G1 launch: max|dx| {dx:.3e}, semiaxes max diff {ds:.3e}")
+    if not (dx <= STEP_TOLERANCE * float(plain_x.abs().max())
+            and ds <= STEP_TOLERANCE * float(plain_semi.abs().max())):
+        fail(name, "the fused G1 launch differs from the plain composition")
+    step_errors.max_abs["step_rest"] = max(step_errors.max_abs["step_rest"], dx)
+    set_step_launches(counts)                   # checks do not count
+    if not time_them:
+        return None
+
+    # -- times on the card beside the plain versions, and the bounds ----------
+    # The tick kernel alone, queued ahead into a buffer and a counter kept
+    # across launches (each launch zeroes the counter first: one memset); the
+    # wrapper's latency with its allocations and count read back apart.
+    capacity = contact.EventCapacity()
+    contact.contact_events(layout, cutoff, capacity=capacity)
+    buffer = torch.empty((capacity.rows, 3), dtype=torch.int32, device=x.device)
+    count = torch.zeros(1, dtype=torch.int32, device=x.device)
+    cutoff2 = float(cutoff) * float(cutoff)
+
+    def tick_kernel():
+        count.zero_()
+        contact._tick_launch(layout, cutoff2, 0, layout.n, buffer, count)
+
+    tick_ms = time_ms(tick_kernel, 20)
+    tick_wrapper_ms = time_ms(
+        lambda: contact.contact_events(layout, cutoff, capacity=capacity), 20)
+    tick_plain_ms = time_ms(lambda: contact.contact_events_reference(layout, cutoff), 2)
+    candidates = half_stencil_candidates(layout)
+    real = int(layout.cell_start[-1])
+    tick_ops = OPS_DISTANCE_TEST * candidates / PEAK_FP32_FLOPS * 1e3
+    tick_bytes = ((TICK_BYTES_PER_ROW * real + 4 * layout.num_cells
+                   + TICK_BYTES_PER_EVENT * len(want)) / PEAK_BYTES_PER_S * 1e3)
+    replicas, n = (1, x.shape[0]) if x.dim() == 2 else (x.shape[0], x.shape[1])
+    rest_ms = time_ms(lambda: step_rest.launch_rest(x, forces0, bonds, wall, update), 50)
+    rest_plain_ms = time_ms(lambda: step_rest.rest_reference(x, forces0, bonds, wall, update), 5)
+    relax = BDParams(c.temperature, dt, c.relaxation_spacestep)
+    update_ms = time_ms(lambda: step_rest.launch_update(
+        x, f_p, model.mobility, noise, c.temperature, dt, c.relaxation_spacestep), 50)
+    update_plain_ms = time_ms(
+        lambda: bd_update_reference(x, f_p, model.mobility, None, relax, noise=noise), 5)
+    set_step_launches(counts)
+    rest_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + REST_SHARED_BYTES_PER_BEAD) * n
+                  / PEAK_BYTES_PER_S * 1e3)
+    update_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + UPDATE_SHARED_BYTES_PER_BEAD) * n
+                    / PEAK_BYTES_PER_S * 1e3)
+    timed = {
+        "contact_tick": dict(ms=tick_ms, plain_ms=tick_plain_ms, bound_ms=max(tick_ops, tick_bytes),
+                             bound_by="operations" if tick_ops >= tick_bytes else "bytes",
+                             events=len(want), half_stencil_candidates=candidates, rows=real,
+                             wrapper_ms=tick_wrapper_ms),
+        "step_rest": dict(ms=rest_ms, plain_ms=rest_plain_ms, bound_ms=rest_bytes,
+                          bound_by="bytes", replicas=replicas, beads=n,
+                          launch="bonds + wall + update + ODE"),
+        "bd_update": dict(ms=update_ms, plain_ms=update_plain_ms, bound_ms=update_bytes,
+                          bound_by="bytes", replicas=replicas, beads=n,
+                          launch="with the displacement limit"),
+    }
+    phase("time", f"{label}: tick kernel {tick_ms:.4f} ms, its wrapper with the count read "
+                  f"back {tick_wrapper_ms:.4f} ms ({len(want)} pairs, {candidates} "
+                  f"half-stencil candidates; plain {tick_plain_ms:.2f} ms, bound "
+                  f"{max(tick_ops, tick_bytes):.5f} ms); rest kernel, G1 launch {rest_ms:.4f} ms "
+                  f"(plain {rest_plain_ms:.3f} ms, bound {rest_bytes:.5f} ms); update kernel "
+                  f"with its limit {update_ms:.4f} ms (plain {update_plain_ms:.3f} ms, bound "
+                  f"{update_bytes:.5f} ms)")
+    return timed
+
+
+def zero_temperature_steps(model, x0, semiaxes0):
+    """STEP_STEPS G1 steps at T = 0 from ``x0`` through the kernels
+    (``_bd_step4`` on the card), each held against the plain composition's
+    step from the same state (within STEP_TOLERANCE of max|x|); then the
+    whole plain trajectory against the kernels' beside a twin, the kernels'
+    trajectory on a grid shifted by a third of a cell (the pair sums in
+    another order): float32 rounding grows e-fold every few steps at T = 0,
+    so two trajectories part whatever computes them, and the plain one may
+    lie no further from the kernels' than TWIN_FACTOR times the twin.
+    Returns the largest step error over max|x|."""
+    from genome_cycle_tpu_torch.models.interphase import ARRAY_FIELDS, InterphaseModel
+    from genome_cycle_tpu_torch.ops import pair_kernels as pk
+    from genome_cycle_tpu_torch.ops import step_rest
+
+    c = model.config
+    if c.temperature != 0:
+        raise ValueError("the comparison runs at T = 0")
+    dt = c.timestep
+    zeros = torch.zeros_like(x0)
+
+    def plain_step(x, semiaxes, step):
+        core, bond = model.scales((step - 1) * dt)
+        pair, _ = pk.ab_pair_forces_reference(model.cell_layout(x), model.pair_kernel_params(core))
+        forces, _ = model.nucleolar_forces(x, bond, pair, 0.0)
+        rest = step_rest.rest_reference(x, forces, model.bond_rows(bond),
+                                        model.wall_rows(semiaxes, core), model.update_rows(zeros))
+        return rest.out, rest.semiaxes
+
+    twin_model = InterphaseModel(c, {name: getattr(model, name).cpu().numpy()
+                                     for name in ARRAY_FIELDS}, model.settings, x0.device)
+    twin_model.bound = model.bound + model.cell / 3
+    counts = step_launches()
+    generator = torch.Generator(device=x0.device)
+    kernels = twin = (x0, generator, semiaxes0)
+    plain = (x0, semiaxes0)
+    worst = worst_semi = 0.0
+    for step in range(1, STEP_STEPS + 1):
+        x_p, semi_p = plain_step(kernels[0], kernels[2], step)
+        kernels = model._bd_step4(kernels, step)
+        worst = max(worst, float((kernels[0] - x_p).abs().max() / x_p.abs().max()))
+        worst_semi = max(worst_semi, float((kernels[2] - semi_p).abs().max()
+                                           / semi_p.abs().max()))
+        plain = plain_step(*plain, step)
+        twin = twin_model._bd_step4(twin, step)
+    set_step_launches(counts)
+    moved = float((kernels[0] - x0).abs().max())
+    apart = float((plain[0] - kernels[0]).abs().max())
+    twin_apart = float((twin[0] - kernels[0]).abs().max())
+    phase("step kernels", f"{STEP_STEPS} G1 steps at T = 0 from the relaxed structure: each "
+                          f"step through the kernels within {worst:.3e} of max|x| of the plain "
+                          f"composition's step from the same state, semiaxes within "
+                          f"{worst_semi:.3e} (beads moved up to {moved:.4f}); the plain "
+                          f"trajectory ends {apart:.3e} from the kernels', their twin on a "
+                          f"shifted grid {twin_apart:.3e} (limit {TWIN_FACTOR:g} times that)")
+    if not (worst <= STEP_TOLERANCE and worst_semi <= STEP_TOLERANCE) or moved < 1e-4:
+        fail("step kernels", "a G1 step through the kernels left the plain composition's")
+    if not apart <= TWIN_FACTOR * twin_apart:
+        fail("step kernels", "the plain trajectory parts from the kernels' faster than rounding")
+    return worst
+
+
+def step_kernel_entries(launches, step_errors, timed, **extra):
+    """The step kernels' entries of the kernels line; ``extra`` goes into
+    the first one's ``shape``."""
+    entries = []
+    for name, (source, replaces) in STEP_KERNELS.items():
+        t = timed[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": step_errors.max_abs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": {k: v for k, v in t.items()
+                      if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        })
+    entries[list(STEP_KERNELS).index("step_rest")]["shape"].update(extra)
+    return entries
+
+
+def step_launch_counts(model, x, semiaxes, step0, generator):
+    """Device kernels a G1 step, a relaxation step and a tick start on the
+    card, at positions ``x`` (torch.profiler)."""
+    c = model.config
+    state = [(x, generator, semiaxes)]
+    counts = step_launches()
+
+    def g1():
+        state[0] = model._bd_step4(state[0], step0)
+
+    def relax():
+        model.relaxation_step((x, generator, semiaxes), 0)
+
+    result = {"g1_step": device_launches(g1, 20), "relaxation_step": device_launches(relax, 20),
+              "tick": device_launches(lambda: model.contact_events_tick(x, step0), 5)}
+    set_step_launches(counts)
+    phase("step kernels", f"device launches: a G1 step {result['g1_step']:.1f}, a relaxation "
+                          f"step {result['relaxation_step']:.1f}, a tick (layout and search) "
+                          f"{result['tick']:.1f} (torch.profiler)")
+    return result
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="smoke test of the port on one CUDA card")
     parser.add_argument("--production", action="store_true",
@@ -1594,7 +1991,7 @@ def main():
 
     from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
     from genome_cycle_tpu_torch.models.interphase import (
-        EngineSettings, InterphaseModel, run_interphase,
+        EngineSettings, InterphaseModel, design_arrays, run_interphase,
     )
     from genome_cycle_tpu_torch.models.prometaphase import run_prometaphase
     from genome_cycle_tpu_torch.models.transitions import (
@@ -1606,19 +2003,24 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    log = _build.build_log("ab_pair_forces")
-    phase("build", f"ab_pair_forces.cu built in {time.perf_counter() - t0:.1f} s "
-                   f"into {_build.build_dir()}")
-    kernel = ""
-    for line in log.splitlines():
-        entry = re.search(r"\d(ab_pair_forces_\w+?_kernel)ILb(\d)E", line)
-        if entry:
-            kernel = entry.group(1) + (" with energy" if entry.group(2) == "1" else "")
-        elif "registers" in line or "spill" in line or "error" in line.lower():
-            phase("build", f"{kernel}: {line.strip()}")
-            if "ab_pair_forces_cell_kernel" in kernel and "spill" in line \
-                    and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                fail("build", "the kernel spills registers")
+    sources = ("ab_pair_forces", "contact_tick", "step_rest")
+    _build.build_all(sources)               # one nvcc a source, all at once
+    phase("build", f"{', '.join(s + '.cu' for s in sources)} built in "
+                   f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
+    for source in sources:
+        kernel = ""
+        for line in _build.build_log(source).splitlines():
+            entry = re.search(r"\d(ab_pair_forces_\w+?_kernel)ILb(\d)E", line) or re.search(
+                r"\d+(contact_tick_kernel|step_rest_kernel|drift_limit_kernel|bd_update_kernel)",
+                line)
+            if entry:
+                kernel = entry.group(1) + (
+                    " with energy" if entry.lastindex == 2 and entry.group(2) == "1" else "")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                phase("build", f"{kernel}: {line.strip()}")
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line \
+                        and "thread_per_bead" not in kernel:
+                    fail("build", f"{kernel} spills registers")
 
     if args.production:
         g1_steps = args.g1_steps
@@ -1643,6 +2045,7 @@ def main():
     try:
         torch.cuda.reset_peak_memory_stats()
         pk.ab_pair_forces.launches = 0
+        set_step_launches(dict.fromkeys(STEP_KERNELS, 0))
         timings = {}
         phase("depth", f"cut to {json.dumps(CONFIG)}; second cell {json.dumps(CONFIG_NEXT)}")
         store, config = prepare_nucleus(workdir, device, timings)
@@ -1659,6 +2062,7 @@ def main():
         transition_prometaphase(store, log=run_log)
         metaphase = run_prometaphase(store, log=run_log, device=device, timings=timings)
         launches = pk.ab_pair_forces.launches
+        main_step_launches = step_launches()
         peak_bytes = torch.cuda.max_memory_allocated()
 
         # ---- what the cycle wrote -------------------------------------------
@@ -1677,7 +2081,15 @@ def main():
             fail("check", f"kernel launched {launches} times on the main path, "
                           f"expected at least {steps + relax_steps}")
         phase("check", f"frames, windows, positions and semiaxes are sound; "
-                       f"kernel launches on the main path: {launches}")
+                       f"kernel launches on the main path: {launches}; step kernels "
+                       f"{main_step_launches}")
+        ticks = (steps // icfg.contactmap_update_interval + 1)
+        if main_step_launches["contact_tick"] < ticks \
+                or main_step_launches["step_rest"] < steps + relax_steps \
+                or main_step_launches["bd_update"] < relax_steps:
+            fail("check", f"the step kernels were not launched on the main path: at least "
+                          f"{ticks} ticks, {steps + relax_steps} rest and {relax_steps} update "
+                          f"launches expected")
         x_metaphase = check_prometaphase(store, m)
         if not np.allclose(metaphase, x_metaphase, rtol=1e-4, atol=1e-4):
             fail("check", "returned metaphase positions differ from the last stored frame")
@@ -1761,6 +2173,43 @@ def main():
         ensemble, device, pk, errors)
     pk.ab_pair_forces.launches = launches  # timing launches do not count
 
+    # ---- 3c. the step kernels against their plain versions, full width -------
+    step_errors = StepErrors()
+    semi_init = torch.as_tensor(icfg.wall_semiaxes_init, dtype=torch.float32, device=device)
+    semi_final = torch.as_tensor(ctx.wall_semiaxes, dtype=torch.float32, device=device)
+    _, bond_final = model.scales(steps * icfg.timestep)
+    x_dev = {}
+    for label, x_host, core, bond, semi in (
+        ("59,610 beads before relaxation", x_before, icfg.core_scale_init, icfg.bond_scale_init,
+         semi_init),
+        ("59,610 beads after relaxation", x_relaxed, icfg.core_scale_init,
+         icfg.bond_scale_init, semi_init),
+        ("59,610 beads after G1", x_final, core_final, bond_final, semi_final),
+    ):
+        x_dev[label] = torch.as_tensor(x_host, dtype=torch.float32, device=device)
+        model.update_bound(float(x_dev[label].abs().max()))
+        step_timed = check_step_kernels(label, model, x_dev[label], core, bond, semi,
+                                        step_errors, time_them=label.endswith("after G1"))
+    ens_model = InterphaseModel.from_design(ensemble["design"], ensemble["config"],
+                                            EngineSettings(), device)
+    x_ens = torch.as_tensor(ensemble["final"], dtype=torch.float32, device=device)
+    ens_model.update_bound(float(x_ens.abs().max()))
+    ens_icfg = ens_model.config
+    ens_core, ens_bond = ens_model.scales(ens_icfg.steps * ens_icfg.timestep)
+    ens_timed = check_step_kernels(
+        f"{REPLICAS} x {ensemble['n']:,} beads stacked after G1", ens_model, x_ens, ens_core,
+        ens_bond, torch.as_tensor(ensemble["semiaxes"], device=device), step_errors,
+        time_them=True)
+    for name in STEP_KERNELS:
+        step_timed[name][f"ensemble of {REPLICAS}"] = ens_timed[name]
+    cold = InterphaseModel(dataclasses.replace(icfg, temperature=0.0),
+                           design_arrays(design, icfg), EngineSettings(), device)
+    cold.update_bound(float(x_dev["59,610 beads after relaxation"].abs().max()))
+    zero_temperature_steps(cold, x_dev["59,610 beads after relaxation"], semi_init)
+    counted = step_launch_counts(model, x_dev["59,610 beads after G1"], semi_final, steps,
+                                 torch.Generator(device=device))
+    set_step_launches(main_step_launches)
+
     # ---- 8. the multi-device paths, two ranks on this card ------------------
     phase("depth", f"shards: {json.dumps(CONFIG_SHARDS)}; ensemble over the ranks "
                    f"{json.dumps(CONFIG_SHARDS_ENSEMBLE)}")
@@ -1772,6 +2221,7 @@ def main():
     errors.max_abs = max(errors.max_abs, shards["kernel_max_abs_err"])
     timed[f"rank 0's local layout, {SHARD_RANKS} ranks"] = shards["local_layout"]
     pk.ab_pair_forces.launches = launches  # timing launches do not count
+    set_step_launches(main_step_launches)
 
     g1 = timings["g1_seconds"]
     rate = timings["g1_steps"] / g1
@@ -1815,6 +2265,7 @@ def main():
     # ---- 10. the statistical gate through the kernel ------------------------
     gate = run_gate(device, pk)
     pk.ab_pair_forces.launches = launches  # the gate's launches do not count
+    set_step_launches(main_step_launches)
 
     main_shape = timed["after G1"]
     phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s "
@@ -1845,7 +2296,8 @@ def main():
         "candidates": main_shape["candidates"],
         "library_ms": None,
         "shapes": timed,
-    }]}), flush=True)
+    }] + step_kernel_entries(main_step_launches, step_errors, step_timed,
+                             device_launches_per_call=counted)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,12 @@ Above ``brute_force_threshold`` the pair force and its energy are computed by
 the hand-written CUDA kernel of ``ops/pair_kernels.py`` over sorted cell
 ranges.  That layout has no per-cell capacity, so the capacity probing,
 overflow retries and engine switches of the JAX ``run_interphase`` have no
-counterpart here.
+counterpart here.  On the card the rest of a step is hand-written too: the
+chain and loop bonds, the wall and (in G1) the Brownian update with the wall
+ODE in one launch of ``csrc/step_rest.cu``, the relaxation's update in
+another, and the tick in ``csrc/contact_tick.cu`` (its event buffer's size
+kept on the model).  The nucleolar bonds and droplet, 20 particles, stay
+plain torch.  On the CPU every one of these runs its plain version.
 
 Known deliberate cadence deviation (documented, within stochastic tolerance):
 the reference samples the frame context *before* the per-step scale/wall
@@ -39,18 +44,20 @@ from ..ops.bonded import (
     chain_bond_pairs,
     loop_bond_pairs,
     pair_bond_forces,
-    shift_bond_forces,
 )
 from ..ops.contact import (
+    EventCapacity,
     contact_events,
     empty_window_acc,
     events_to_host,
     merge_events_acc,
     merge_window,
 )
-from ..ops.integrator import BDParams, bd_update
+from ..ops import step_rest
+from ..ops.integrator import BDParams, bd_update, standard_normal
 from ..ops.neighbor import pairwise_forces_dense
 from ..ops.pair_kernels import ab_pair_forces, build_cell_layout
+from ..ops.step_rest import BondRows, UpdateRows, WallRows
 from ..ops.wall import wall_forces
 from ..utils.logging import progress_line
 
@@ -216,6 +223,8 @@ class InterphaseModel(nn.Module):
             config.contactmap_distance,
         )
         self.bound = float(settings.dense_bound)
+        # Rows of the tick kernel's event buffer, grown when a tick overflows.
+        self.tick_capacity = EventCapacity()
 
     @property
     def device(self):
@@ -279,42 +288,33 @@ class InterphaseModel(nn.Module):
         R replicas) on the model's grid."""
         return build_cell_layout(positions, self.af, self.bf, self.bound, self.cell)
 
-    def bonded_forces(self, positions, bond_scale, with_energy=False):
-        """All topology-indexed terms: chain bonds, loops, nucleolar bonds,
-        nucleolar droplet.  Cheap O(N)."""
-        c = self.config
-
-        # Chain bonds: fluctuation-preserving rescale K/s^2, l*s
-        # (simulation_driver_forcefield.cpp:78-88).  Uniform (i, i+1)
-        # offset -> shift formulation (rolls, no gather/scatter).
-        s2 = bond_scale * bond_scale
-        k_bond = self.bond_k_row / s2
-        l_bond = self.bond_l_row * bond_scale
-        forces, energy = shift_bond_forces(
-            positions, 1, self.bond_mask,
-            lambda r2: pot.semispring_energy(r2, k_bond, l_bond),
-            lambda r2: pot.semispring_force_coeff(r2, k_bond, l_bond),
+    def bond_rows(self, bond_scale) -> BondRows:
+        """The chain bonds and loops at a bond scale, as the rest kernel
+        takes them."""
+        return BondRows(
+            self.bond_mask, self.bond_k_row, self.bond_l_row,
+            self.loop_mask if self.use_loops else None,
+            self.loop_k_row if self.use_loops else None, bond_scale,
         )
 
-        if self.use_loops:
-            k_loop = self.loop_k_row / s2
-            f, e = shift_bond_forces(
-                positions, 2, self.loop_mask,
-                lambda r2: pot.harmonic_energy(r2, k_loop),
-                lambda r2: pot.harmonic_force_coeff(r2, k_loop),
-            )
-            forces, energy = forces + f, energy + e
-
+    def nucleolar_forces(self, positions, bond_scale, forces, energy, with_energy=False):
+        """``forces`` plus the nucleolar bonds and droplet (plain torch on
+        every device: 20 particles), and ``energy`` plus theirs when
+        ``with_energy`` (else ``energy`` comes back as it was)."""
+        c = self.config
+        s2 = bond_scale * bond_scale
         if self.nuc_bonds.shape[0]:
             k_nuc = c.nucleolus_bond_spring / s2
             l_nuc = c.nucleolus_bond_length * bond_scale
             f, e = pair_bond_forces(
                 positions,
                 self.nuc_bonds,
-                lambda r2: pot.semispring_energy(r2, k_nuc, l_nuc),
+                (lambda r2: pot.semispring_energy(r2, k_nuc, l_nuc)) if with_energy else None,
                 lambda r2: pot.semispring_force_coeff(r2, k_nuc, l_nuc),
             )
-            forces, energy = forces + f, energy + e
+            forces = forces + f
+            if with_energy:
+                energy = energy + e
 
         if self.use_droplet:
             cutoff = c.nucleolus_droplet_cutoff
@@ -338,9 +338,20 @@ class InterphaseModel(nn.Module):
                 positions, drop_c, drop_u if with_energy else None,
                 targets=self.nuc_targets,
             )
-            forces, energy = forces + f, energy + e
+            forces = forces + f
+            if with_energy:
+                energy = energy + e
 
         return forces, energy
+
+    def bonded_forces(self, positions, bond_scale, with_energy=False):
+        """All topology-indexed terms: chain bonds, loops (the rest kernel on
+        the card), nucleolar bonds, nucleolar droplet.  Cheap O(N).  Returns
+        (forces, energy); the energy is 0.0 unless ``with_energy``."""
+        chain = step_rest.rest(positions, bonds=self.bond_rows(bond_scale),
+                               with_energy=with_energy)
+        return self.nucleolar_forces(positions, bond_scale, chain.out, chain.bonded_energy,
+                                     with_energy)
 
     def pair_kernel_params(self, core_scale):
         """[e_a, 1/d_a^2, e_b, 1/d_b^2] of the pair kernel at a core scale."""
@@ -377,6 +388,10 @@ class InterphaseModel(nn.Module):
         )
         return forces.reshape(positions.shape).to(positions.dtype), energy.to(positions.dtype)
 
+    def wall_rows(self, semiaxes, core_scale) -> WallRows:
+        """The wall at a core scale, as the rest kernel takes it."""
+        return WallRows(semiaxes, self.wall_a, self.wall_b, self._wall_params(core_scale))
+
     def wall_forces_rows(self, positions, semiaxes, core_scale):
         """Nuclear envelope; returns (forces, reaction, energy)."""
         return wall_forces(
@@ -392,13 +407,23 @@ class InterphaseModel(nn.Module):
 
     # -- step functions ------------------------------------------------------
 
+    def update_rows(self, noise) -> UpdateRows:
+        """The G1 update as the rest kernel takes it: mobility, ``noise``,
+        kT, dt and the wall ODE's rate and springs."""
+        c = self.config
+        return UpdateRows(self.mobility, noise, c.temperature, c.timestep,
+                          c.timestep * c.wall_mobility, tuple(c.wall_semiaxes_spring))
+
     def _assemble_forces(self, x, core_scale, bond_scale, semiaxes,
                          with_energy=False):
         """Full force field.  Returns (forces, reaction, energy)."""
         forces, energy = self.pair_forces_full(x, core_scale, with_energy)
-        f, e = self.bonded_forces(x, bond_scale, with_energy)
-        wf, reaction, we = self.wall_forces_rows(x, semiaxes, core_scale)
-        return forces + f + wf, reaction, energy + e + we
+        forces, energy = self.nucleolar_forces(x, bond_scale, forces, energy, with_energy)
+        rest = step_rest.rest(x, forces, self.bond_rows(bond_scale),
+                              self.wall_rows(semiaxes, core_scale), with_energy=with_energy)
+        if with_energy:
+            energy = energy + rest.bonded_energy + rest.wall_energy
+        return rest.out, rest.reaction, energy
 
     @torch.no_grad()
     def relaxation_step(self, carry, step, noise=None):
@@ -419,7 +444,9 @@ class InterphaseModel(nn.Module):
     @torch.no_grad()
     def _bd_step4(self, carry, step: int, noise=None):
         """Forces at lagged scales, BD update, wall ODE — everything except
-        contact accounting (simulation_driver_interphase.cpp:16-63,79-90)."""
+        contact accounting (simulation_driver_interphase.cpp:16-63,79-90).
+        On the card the bonds, the wall, the update and the wall ODE are one
+        launch of the rest kernel."""
         x, generator, semiaxes = carry
         c = self.config
         dt = c.timestep
@@ -427,20 +454,15 @@ class InterphaseModel(nn.Module):
         # time (step-1) * dt.
         core_scale, bond_scale = self.scales((step - 1) * dt)
 
-        forces, reaction, _ = self._assemble_forces(
-            x, core_scale, bond_scale, semiaxes
-        )
-        x = bd_update(
-            x, forces, self.mobility, generator, BDParams(c.temperature, dt),
-            noise=noise,
-        )
-
+        forces, _ = self.pair_forces_full(x, core_scale)
+        forces, _ = self.nucleolar_forces(x, bond_scale, forces, 0.0)
+        if noise is None:
+            noise = standard_normal(x, generator)
         # Wall ODE: overdamped motion of the semiaxes under chromatin pressure
-        # (simulation_driver_interphase.cpp:79-90).
-        semiaxes = semiaxes + dt * c.wall_mobility * (
-            reaction - self.wall_spring * semiaxes
-        )
-        return (x, generator, semiaxes)
+        # (simulation_driver_interphase.cpp:79-90), in the same call.
+        rest = step_rest.rest(x, forces, self.bond_rows(bond_scale),
+                              self.wall_rows(semiaxes, core_scale), self.update_rows(noise))
+        return (rest.out, generator, rest.semiaxes)
 
     @torch.no_grad()
     def contact_events_tick(self, x, step: int):
@@ -456,7 +478,8 @@ class InterphaseModel(nn.Module):
         """
         c = self.config
         core_now, _ = self.scales(step * c.timestep)
-        return contact_events(self.cell_layout(x), c.contactmap_distance * core_now)
+        return contact_events(self.cell_layout(x), c.contactmap_distance * core_now,
+                              capacity=self.tick_capacity)
 
     def g1_chunk(self, carry, start: int, steps: int, window: "WindowAccumulator"):
         """G1 steps ``start + 1`` to ``start + steps``, each tick's contact

@@ -12,6 +12,7 @@ and a built one is reused.  Nothing here runs when the module is imported.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -53,27 +54,45 @@ def find_nvcc() -> str:
     )
 
 
+def _paths(name: str):
+    """(source, library, log) of ``csrc/<name>.cu`` as it stands."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return source, out_dir / f"lib{name}-{digest}.so", out_dir / f"lib{name}-{digest}.log"
+
+
+def _build(name: str):
+    """Compile ``csrc/<name>.cu`` unless its library is built; no lock held,
+    so several sources compile at once."""
+    source, target, log_path = _paths(name)
+    if not (target.exists() and log_path.exists()):
+        scratch = target.with_name(f"{target.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+        log = compile_source(source, scratch)
+        log_path.write_text(log)
+        os.replace(scratch, target)  # atomic: a concurrent build is harmless
+
+
+def build_all(names) -> None:
+    """Compile the given sources at once, one ``nvcc`` each, and load them."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names) or 1) as pool:
+        list(pool.map(_build, names))          # raises the first build's error
+    for name in names:
+        load_library(name)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built if need be."""
     with _lock:
         if name in _libraries:
             return _libraries[name]
-        source = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        target = out_dir / f"lib{name}-{digest}.so"
-        log_path = out_dir / f"lib{name}-{digest}.log"
-        if target.exists() and log_path.exists():
-            _build_logs[name] = log_path.read_text()
-        else:
-            scratch = out_dir / f"lib{name}-{digest}.{os.getpid()}.tmp.so"
-            log = compile_source(source, scratch)
-            log_path.write_text(log)
-            os.replace(scratch, target)  # atomic: a concurrent build is harmless
-            _build_logs[name] = log
+        _build(name)
+        _, target, log_path = _paths(name)
+        _build_logs[name] = log_path.read_text()
         _library_paths[name] = target
         _libraries[name] = ctypes.CDLL(str(target))
         return _libraries[name]

@@ -10,41 +10,49 @@ contact distance counts each in-range pair once; the counts accumulate over an
 output window and are dumped as COO rows sorted by the packed key
 ``i << 32 | j``.
 
-The search walks the same cell layout as the pair-force kernel, in plain
-torch: ragged ranges are expanded and filtered, so the event list has exactly
-as many rows as there are pairs — no capacity, nothing to truncate.  The
-window accumulator is a fixed buffer of sorted COO rows on the device; a
-merge that needs more rows than it has reports by how many, and the caller
-grows the buffer and merges again.
+The search walks the same cell layout as the pair-force kernel.  On the
+card it is the hand-written kernel of ``csrc/contact_tick.cu``: every pair
+found takes a row of a fixed event buffer through one atomic counter, the
+wrapper reads the counter (the tick's one host synchronisation) and, when the
+buffer was too small, grows it and searches again (:func:`events_with_capacity`;
+the buffer's size lives with the caller, :class:`EventCapacity`).  Its plain
+version, :func:`contact_events_reference`, expands and filters the ragged
+ranges in torch, so its event list has exactly as many rows as there are
+pairs.  The window accumulator is a fixed buffer of sorted COO rows on the
+device; a merge that needs more rows than it has reports by how many, and
+the caller grows the buffer and merges again.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
-from .pair_kernels import CellLayout, expand_ranges, stencil_ranges
+from . import _build
+from .pair_kernels import CellLayout, _check_layout, expand_ranges, stencil_ranges
 
 # Sentinel id for empty accumulator rows: sorts after every real bead id, so
 # padding always sits at the tail.
 _ACC_PAD = int(np.iinfo(np.int32).max)
 
 
-def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None) -> torch.Tensor:
-    """Every pair i < j with r < cutoff exactly once, as (E, 3) int32 rows
-    [i, j, 1] in original bead ids.
-
-    The layout holds the positions the search runs on.  ``cutoff`` must not
-    exceed the layout's cell edge (one-cell stencil).  Padded rows take part
-    in no pair.  With a home range ``[begin, end)`` of the sorted order only
-    the pairs whose lower sorted index lies in it are listed: ranks whose
-    home ranges tile the sorted order list every pair once between them.
-    """
+def _check_cutoff(layout: CellLayout, cutoff: float):
     if cutoff > layout.cell * (1.0 + 1e-6):
         raise ValueError(
             f"contact cutoff {cutoff:g} exceeds the cell edge {layout.cell:g}: "
             "the one-cell stencil would lose pairs"
         )
+
+
+def contact_events_reference(layout: CellLayout, cutoff: float, begin: int = 0,
+                             end=None) -> torch.Tensor:
+    """Plain version of :func:`contact_events`: the same pairs, in the order
+    of the half stencil's ranges."""
+    _check_cutoff(layout, cutoff)
     pos = layout.xyz[:, :3]
     cutoff2 = float(cutoff) * float(cutoff)
     rows = torch.arange(layout.n, device=pos.device)
@@ -53,7 +61,9 @@ def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None) 
     for start, count in stencil_ranges(layout, half=True):
         for i, j in expand_ranges(start, torch.where(home, count, 0)):
             dx = pos[i] - pos[j]
-            hit = (torch.sum(dx * dx, dim=-1) < cutoff2) & (j > i)
+            # Summed in this order, as the kernel sums it.
+            r2 = (dx[:, 0] * dx[:, 0] + dx[:, 1] * dx[:, 1]) + dx[:, 2] * dx[:, 2]
+            hit = (r2 < cutoff2) & (j > i)
             found.append(torch.stack([i[hit], j[hit]], dim=1))
     if not found:
         return torch.zeros((0, 3), dtype=torch.int32, device=pos.device)
@@ -61,6 +71,101 @@ def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None) 
     lo = torch.minimum(pairs[:, 0], pairs[:, 1])
     hi = torch.maximum(pairs[:, 0], pairs[:, 1])
     return torch.stack([lo, hi, torch.ones_like(lo)], dim=1).to(torch.int32)
+
+
+class EventCapacity:
+    """The rows of a tick's event buffer, kept by the caller (a model, a
+    rank) from tick to tick.  ``rows`` None: 16 per row of the first layout
+    searched.  A tick that finds more pairs than there are rows grows it to
+    1.25 times the count, rounded up to a multiple of 4,096."""
+
+    def __init__(self, rows: Optional[int] = None):
+        self.rows = rows
+
+    def grow(self, count: int):
+        self.rows = int(math.ceil(count * 1.25 / 4096)) * 4096
+
+
+def events_with_capacity(search, capacity: EventCapacity):
+    """``search(rows) -> (buffer (rows, 3), count)`` run with the capacity's
+    rows, and again with more rows as long as the count exceeds them (the
+    search must be a pure function of its inputs: a rerun is exact).
+    Returns the buffer's first ``count`` rows."""
+    while True:
+        buffer, count = search(capacity.rows)
+        if count <= capacity.rows:
+            return buffer[:count]
+        capacity.grow(count)
+
+
+def _tick_entry_point():
+    lib = _build.load_library("contact_tick")
+    launch = lib.contact_tick_launch
+    if not launch.argtypes:
+        launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_uint] + [ctypes.c_void_p] * 3)
+        launch.restype = ctypes.c_int
+    return launch
+
+
+def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffer, count):
+    """One launch of the tick kernel into ``buffer`` (rows, 3) int32; adds
+    the pairs found to ``count`` (1,) int32, which must hold 0.  Allocates
+    nothing and does not synchronise."""
+    device = layout.xyz.device
+    with torch.cuda.device(device):
+        status = _tick_entry_point()(
+            layout.xyz.data_ptr(), layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
+            layout.order.data_ptr(), begin, end, *layout.shape, cutoff2, buffer.shape[0],
+            buffer.data_ptr(), count.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"contact tick kernel launch failed: CUDA error {status}")
+    contact_events.launches += 1
+
+
+def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int):
+    """:func:`_tick_launch` into a fresh buffer of ``rows`` rows; returns the
+    buffer and the count of pairs found (a host synchronisation)."""
+    device = layout.xyz.device
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    buffer = torch.empty((rows, 3), dtype=torch.int32, device=device)
+    _tick_launch(layout, cutoff2, begin, end, buffer, count)
+    return buffer, int(count.item()) & 0xFFFFFFFF
+
+
+def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
+                   capacity: Optional[EventCapacity] = None) -> torch.Tensor:
+    """Every pair i < j with r < cutoff exactly once, as (E, 3) int32 rows
+    [i, j, 1] in original bead ids.
+
+    The layout holds the positions the search runs on.  ``cutoff`` must not
+    exceed the layout's cell edge (one-cell stencil).  Padded rows take part
+    in no pair.  With a home range ``[begin, end)`` of the sorted order only
+    the pairs whose lower sorted index lies in it are listed: ranks whose
+    home ranges tile the sorted order list every pair once between them.
+
+    A CUDA layout goes to the kernel of ``csrc/contact_tick.cu`` (rows in no
+    fixed order; ``capacity`` is the caller's buffer size, grown when a tick
+    overflows it, a fresh one when None), or the call raises; a CPU layout
+    goes to the plain version :func:`contact_events_reference`.
+    """
+    if layout.xyz.device.type != "cuda":
+        return contact_events_reference(layout, cutoff, begin, end)
+    _check_cutoff(layout, cutoff)
+    _check_layout(layout)
+    capacity = capacity if capacity is not None else EventCapacity()
+    if capacity.rows is None:
+        capacity.rows = 16 * layout.n
+    begin = max(int(begin), 0)
+    end = layout.n if end is None else min(int(end), layout.n)
+    cutoff2 = float(cutoff) * float(cutoff)
+    return events_with_capacity(
+        lambda rows: _tick_search(layout, cutoff2, begin, end, rows), capacity)
+
+
+# Kernel launches made by this process (reruns after an overflow included).
+contact_events.launches = 0
 
 
 def merge_contact_events(keys: np.ndarray, weights: np.ndarray):

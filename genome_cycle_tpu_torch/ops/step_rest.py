@@ -1,0 +1,358 @@
+"""Wrappers of ``csrc/step_rest.cu``: the O(N) rest of a step on the card.
+
+:func:`rest` is what a step calls: ``forces`` plus the chain and loop bonds
+and the wall with its per-axis reaction, or, given an :class:`UpdateRows`,
+the Brownian update of the G1 step with the wall ODE as well.  A CUDA tensor
+takes one launch of the rest kernel (:func:`launch_rest`) or raises; a CPU
+tensor takes the plain composition :func:`rest_reference`
+(``ops/bonded.py::shift_bond_forces``, ``ops/wall.py::wall_forces_reference``
+(autograd), ``ops/integrator.py::bd_update_reference``).
+
+:func:`launch_update` is the update alone, with the relaxation's
+displacement limit computed on the device; it sits behind
+``ops/integrator.py::bd_update``.
+
+Both kernels take float32 CUDA tensors only, raise on anything else, launch
+on the current stream without synchronising, and count their launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import _build, integrator, potentials
+from . import wall as wall_ops
+from .bonded import shift_bond_forces
+from .pair_kernels import _check_tensor
+
+_SUMS = 5   # reaction x, y, z; bonded energy; wall energy (the source's kSums)
+
+
+class BondRows(NamedTuple):
+    """Row-aligned chain bonds (i, i + 1) and loops (i, i + 2), as
+    ``shift_bond_forces`` takes them: (N,) masks and per-row parameters; at
+    bond scale s the springs are K / s^2 and the chain lengths l * s."""
+
+    mask: torch.Tensor                   # (N,) bool
+    spring: torch.Tensor                 # (N,) f32
+    length: torch.Tensor                 # (N,) f32
+    loop_mask: Optional[torch.Tensor]    # (N,) bool, or None: no loops
+    loop_spring: Optional[torch.Tensor]  # (N,) f32
+    scale: float
+
+
+class WallRows(NamedTuple):
+    """The wall of ``ops/wall.py``: semiaxes (3,) or (R, 3), the per-bead
+    weights (N,) and the parameter dict (half diameters, core-scaled)."""
+
+    semiaxes: torch.Tensor
+    a_mix: torch.Tensor
+    b_mix: torch.Tensor
+    params: dict
+
+
+class UpdateRows(NamedTuple):
+    """The Brownian update fused into the rest kernel: mobility (N,), the
+    standard normals of the positions' shape, kT and dt; the wall ODE's rate
+    dt * wall mobility and its three springs."""
+
+    mobility: torch.Tensor
+    noise: torch.Tensor
+    temperature: float
+    timestep: float
+    ode_rate: float
+    spring: tuple
+
+
+class RestResult(NamedTuple):
+    out: torch.Tensor                    # forces, or the new positions
+    reaction: Optional[torch.Tensor]     # (3,) or (R, 3); None without the wall
+    bonded_energy: object                # summed over replicas; 0.0 unless asked for
+    wall_energy: object
+    semiaxes: Optional[torch.Tensor]     # after the wall ODE, with an update
+
+
+class _RestArgs(ctypes.Structure):
+    """The source's ``RestArgs``, field for field."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p), ("f_in", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("replicas", ctypes.c_int), ("n", ctypes.c_int),
+        ("bond_mask", ctypes.c_void_p), ("bond_k", ctypes.c_void_p),
+        ("bond_l", ctypes.c_void_p), ("loop_mask", ctypes.c_void_p),
+        ("loop_k", ctypes.c_void_p),
+        ("bond_s2", ctypes.c_float), ("bond_s", ctypes.c_float),
+        ("semiaxes", ctypes.c_void_p), ("wall_a", ctypes.c_void_p),
+        ("wall_b", ctypes.c_void_p),
+        ("e_a", ctypes.c_float), ("inv_da2", ctypes.c_float), ("e_b", ctypes.c_float),
+        ("inv_db2", ctypes.c_float), ("packing_spring", ctypes.c_float),
+        ("mobility", ctypes.c_void_p), ("noise", ctypes.c_void_p),
+        ("dt", ctypes.c_float), ("two_t", ctypes.c_float),
+        ("ode_rate", ctypes.c_float), ("spring", ctypes.c_float * 3),
+        ("semiaxes_out", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
+        ("reaction", ctypes.c_void_p), ("energy", ctypes.c_void_p),
+    ]
+
+
+# One ticket counter a replica for each card and stream, zero between
+# launches (the last block of a launch resets its replica's).  Launches on
+# one stream run one after the other, so they never share a ticket at once.
+_tickets: dict = {}
+
+
+def _library():
+    lib = _build.load_library("step_rest")
+    if not lib.step_rest_launch.argtypes:
+        lib.step_rest_launch.argtypes = [ctypes.POINTER(_RestArgs), ctypes.c_void_p]
+        lib.step_rest_launch.restype = ctypes.c_int
+        lib.step_rest_blocks.argtypes = [ctypes.c_int]
+        lib.step_rest_blocks.restype = ctypes.c_int
+        lib.step_rest_args_size.restype = ctypes.c_int
+        lib.bd_update_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                                         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
+        lib.bd_update_launch.restype = ctypes.c_int
+        if lib.step_rest_args_size() != ctypes.sizeof(_RestArgs):
+            raise RuntimeError("step_rest.cu's RestArgs and the wrapper's copy differ")
+    return lib
+
+
+def _tickets_for(device, stream, replicas):
+    key = (device, stream)
+    held = _tickets.get(key)
+    if held is None or held.shape[0] < replicas:
+        held = torch.zeros(max(replicas, 8), dtype=torch.int32, device=device)
+        _tickets[key] = held
+    return held
+
+
+def _rows(name, tensor, dtype, n, device):
+    _check_tensor(name, tensor, dtype, (n,), device, 4 if dtype == torch.float32 else 1)
+    return tensor.data_ptr()
+
+
+def _stacked(positions):
+    """(R, N) of positions (N, 3) or (R, N, 3)."""
+    if positions.dim() == 2:
+        return 1, positions.shape[0]
+    if positions.dim() == 3:
+        return positions.shape[0], positions.shape[1]
+    raise ValueError(f"positions of shape {tuple(positions.shape)}: expected (N, 3) or (R, N, 3)")
+
+
+def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
+                wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
+                with_energy: bool = False, in_place: bool = False) -> RestResult:
+    """One launch of ``step_rest_kernel`` on CUDA float32 tensors.
+
+    ``forces`` (of the positions' shape, or None for zeros) plus the chain
+    and loop bonds and the wall.  Without ``update`` the result's ``out``
+    holds the forces (``forces`` itself with ``in_place``); with it, the new
+    positions x + mu F dt + sqrt(2 mu kT dt) xi and the semiaxes moved by
+    the wall ODE.  The reaction is per replica: (3,) for positions (N, 3),
+    (R, 3) for (R, N, 3).  With ``with_energy`` the bonded and the wall
+    energies, each summed over all beads.
+
+    The reaction, the energies and the new semiaxes are written by the
+    launch's last block, found by a ticket counter kept for the current
+    stream: a launch must not run beside another launch on the same stream
+    (as it cannot, unless the stream's work is reordered by hand).
+    """
+    device = positions.device
+    if device.type != "cuda":
+        raise ValueError(f"the rest kernel runs on a CUDA tensor, not on {device}")
+    replicas, n = _stacked(positions)
+    shape = tuple(positions.shape)
+    if shape[-1] != 3:
+        raise ValueError(f"positions of shape {shape}: expected (N, 3) or (R, N, 3)")
+    _check_tensor("positions", positions, torch.float32, shape, device, 4)
+    if n * replicas >= 2 ** 31 // 3:
+        raise ValueError("bead count does not fit 32-bit indices")
+    args = _RestArgs()
+    args.x = positions.data_ptr()
+    args.replicas, args.n = replicas, n
+    if forces is not None:
+        _check_tensor("forces", forces, torch.float32, shape, device, 4)
+        args.f_in = forces.data_ptr()
+    if bonds is not None:
+        s = float(bonds.scale)
+        args.bond_mask = _rows("bond mask", bonds.mask, torch.bool, n, device)
+        args.bond_k = _rows("bond springs", bonds.spring, torch.float32, n, device)
+        args.bond_l = _rows("bond lengths", bonds.length, torch.float32, n, device)
+        if bonds.loop_mask is not None:
+            args.loop_mask = _rows("loop mask", bonds.loop_mask, torch.bool, n, device)
+            args.loop_k = _rows("loop springs", bonds.loop_spring, torch.float32, n, device)
+        args.bond_s2, args.bond_s = s * s, s
+    reaction = semiaxes_out = None
+    # No bead launches no block: the sums are zero (a rank may own no bead).
+    alloc = torch.empty if n else torch.zeros
+    if wall is not None:
+        semi_shape = (3,) if positions.dim() == 2 else (replicas, 3)
+        _check_tensor("semiaxes", wall.semiaxes, torch.float32, semi_shape, device, 4)
+        args.semiaxes = wall.semiaxes.data_ptr()
+        args.wall_a = _rows("wall weights a", wall.a_mix, torch.float32, n, device)
+        args.wall_b = _rows("wall weights b", wall.b_mix, torch.float32, n, device)
+        p = wall.params
+        args.e_a, args.e_b = float(p["a_energy"]), float(p["b_energy"])
+        args.inv_da2 = 1.0 / (float(p["a_diameter"]) ** 2)
+        args.inv_db2 = 1.0 / (float(p["b_diameter"]) ** 2)
+        args.packing_spring = float(p["packing_spring"])
+        reaction = alloc(semi_shape, dtype=torch.float32, device=device)
+        args.reaction = reaction.data_ptr()
+    if update is not None:
+        if in_place:
+            raise ValueError("the update writes new positions out of place")
+        args.mobility = _rows("mobility", update.mobility, torch.float32, n, device)
+        _check_tensor("noise", update.noise, torch.float32, shape, device, 4)
+        args.noise = update.noise.data_ptr()
+        args.dt, args.two_t = float(update.timestep), 2.0 * float(update.temperature)
+        if wall is not None:
+            args.ode_rate = float(update.ode_rate)
+            args.spring = (ctypes.c_float * 3)(*(float(v) for v in update.spring))
+            if n:
+                semiaxes_out = torch.empty_like(reaction)
+            else:
+                springs = torch.tensor(update.spring, dtype=torch.float32, device=device)
+                semiaxes_out = wall.semiaxes - update.ode_rate * springs * wall.semiaxes
+            args.semiaxes_out = semiaxes_out.data_ptr()
+    if in_place:
+        if forces is None:
+            raise ValueError("in place needs a force buffer")
+        out = forces
+    else:
+        out = torch.empty_like(positions)
+    args.out = out.data_ptr()
+    energy = None
+    if with_energy:
+        energy = alloc((replicas, 2), dtype=torch.float32, device=device)
+        args.energy = energy.data_ptr()
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if wall is not None or with_energy:
+        partials = torch.empty(replicas * lib.step_rest_blocks(n) * _SUMS,
+                               dtype=torch.float32, device=device)
+        args.partials = partials.data_ptr()
+        args.tickets = _tickets_for(device, stream, replicas).data_ptr()
+    with torch.cuda.device(device):
+        status = lib.step_rest_launch(ctypes.byref(args), stream)
+    if status != 0:
+        raise RuntimeError(f"step_rest kernel launch failed: CUDA error {status}")
+    launch_rest.launches += 1
+    if energy is None:
+        bonded_energy = wall_energy = 0.0
+    else:
+        bonded_energy, wall_energy = energy.sum(dim=0).unbind()
+    return RestResult(out, reaction, bonded_energy, wall_energy, semiaxes_out)
+
+
+# Kernel launches made by this process (see ab_pair_forces.launches).
+launch_rest.launches = 0
+
+
+def chain_bonds_reference(positions, bonds: BondRows):
+    """Plain chain bonds and loops: (forces, energy) by ``shift_bond_forces``.
+    Chain bonds rescale fluctuation-preserving, K/s^2 and l*s
+    (simulation_driver_forcefield.cpp:78-88); the uniform (i, i+1) and
+    (i, i+2) offsets take the shift formulation (rolls, no gather/scatter)."""
+    s2 = bonds.scale * bonds.scale
+    k_bond = bonds.spring / s2
+    l_bond = bonds.length * bonds.scale
+    forces, energy = shift_bond_forces(
+        positions, 1, bonds.mask,
+        lambda r2: potentials.semispring_energy(r2, k_bond, l_bond),
+        lambda r2: potentials.semispring_force_coeff(r2, k_bond, l_bond),
+    )
+    if bonds.loop_mask is not None:
+        k_loop = bonds.loop_spring / s2
+        f, e = shift_bond_forces(
+            positions, 2, bonds.loop_mask,
+            lambda r2: potentials.harmonic_energy(r2, k_loop),
+            lambda r2: potentials.harmonic_force_coeff(r2, k_loop),
+        )
+        forces, energy = forces + f, energy + e
+    return forces, energy
+
+
+def rest_reference(positions, forces=None, bonds: Optional[BondRows] = None,
+                   wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
+                   with_energy: bool = False) -> RestResult:
+    """Plain version of :func:`rest` (and so of the rest kernel), in the
+    positions' dtype or wider: the bonds by :func:`chain_bonds_reference`,
+    the wall by autograd, the update by ``bd_update_reference`` on the
+    handed-in noise, then the wall ODE a + rate (reaction - spring a)."""
+    out = torch.zeros_like(positions) if forces is None else forces
+    bonded_energy = wall_energy = 0.0
+    reaction = semiaxes = None
+    if bonds is not None:
+        f, bonded_energy = chain_bonds_reference(positions, bonds)
+        out = out + f
+    if wall is not None:
+        f, reaction, wall_energy = wall_ops.wall_forces_reference(
+            positions, wall.semiaxes, wall.a_mix, wall.b_mix, wall.params)
+        out = out + f
+    if not with_energy:
+        bonded_energy = wall_energy = 0.0
+    if update is not None:
+        out = integrator.bd_update_reference(
+            positions, out, update.mobility, None,
+            integrator.BDParams(update.temperature, update.timestep), noise=update.noise)
+        if wall is not None:
+            spring = torch.as_tensor(update.spring, dtype=wall.semiaxes.dtype,
+                                     device=wall.semiaxes.device)
+            semiaxes = wall.semiaxes + update.ode_rate * (reaction - spring * wall.semiaxes)
+    return RestResult(out, reaction, bonded_energy, wall_energy, semiaxes)
+
+
+def rest(positions, forces=None, bonds: Optional[BondRows] = None,
+         wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
+         with_energy: bool = False) -> RestResult:
+    """``forces`` (None for zeros) plus the chain bonds and loops and the
+    wall, each left out when None; with ``update``, the G1 step's new
+    positions and semiaxes instead of the forces.
+
+    On a CUDA tensor one launch of the rest kernel, or the call raises;
+    without ``update`` it adds into ``forces`` in place.  On a CPU tensor the
+    plain version :func:`rest_reference`."""
+    if positions.device.type != "cuda":
+        return rest_reference(positions, forces, bonds, wall, update, with_energy)
+    return launch_rest(positions, forces, bonds, wall, update, with_energy,
+                       in_place=forces is not None and update is None)
+
+
+def launch_update(positions, forces, mobility, noise, temperature: float, timestep: float,
+                  spacestep: Optional[float] = None):
+    """x + mu F dt_eff + sqrt(2 mu kT dt_eff) xi on CUDA float32 tensors,
+    positions (N, 3) or (R, N, 3), out of place; ``dt_eff`` is the timestep,
+    or with ``spacestep`` each replica's timestep limited so that its largest
+    |mu F| dt_eff does not exceed it (computed on the device)."""
+    device = positions.device
+    if device.type != "cuda":
+        raise ValueError(f"the update kernel runs on a CUDA tensor, not on {device}")
+    replicas, n = _stacked(positions)
+    shape = tuple(positions.shape)
+    for name, tensor in (("positions", positions), ("forces", forces), ("noise", noise)):
+        _check_tensor(name, tensor, torch.float32, shape, device, 4)
+    _rows("mobility", mobility, torch.float32, n, device)
+    out = torch.empty_like(positions)
+    dt_eff = None
+    if spacestep is not None:
+        dt_eff = torch.empty(replicas, dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        status = lib.bd_update_launch(
+            positions.data_ptr(), forces.data_ptr(), mobility.data_ptr(), noise.data_ptr(),
+            replicas, n, float(timestep), 2.0 * float(temperature),
+            float(spacestep) if spacestep is not None else 0.0,
+            dt_eff.data_ptr() if dt_eff is not None else None, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"bd_update kernel launch failed: CUDA error {status}")
+    launch_update.launches += 1
+    return out
+
+
+launch_update.launches = 0

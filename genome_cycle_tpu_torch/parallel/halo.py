@@ -59,7 +59,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.contact import contact_events, merge_window
+from ..ops.contact import EventCapacity, contact_events, merge_window
 from ..ops.integrator import BDParams, bd_update
 from ..ops.pair_kernels import ab_pair_forces, build_cell_layout
 from ..ops.wall import wall_forces
@@ -153,6 +153,8 @@ class HaloRank:
         if model.n >= 2 ** 24:
             raise ValueError("bead ids travel as float32 beside the positions: N must be below 2^24")
         self.model, self.mesh, self.geo = model, mesh, geo
+        # Rows of the tick kernel's event buffer on this rank's local layout.
+        self.tick_capacity = EventCapacity()
         self.slab_lo = -geo.bound + mesh.shard * geo.slab_width
         self.slab_hi = self.slab_lo + geo.slab_width
 
@@ -287,7 +289,8 @@ class HaloRank:
         into its window."""
         model = self.model
         core_now, _ = model.scales(step * model.config.timestep)
-        events = contact_events(self.layout(), model.config.contactmap_distance * core_now)
+        events = contact_events(self.layout(), model.config.contactmap_distance * core_now,
+                                capacity=self.tick_capacity)
         pair = self.local_ids[events[:, :2].to(torch.int64)]
         lo, hi = pair.min(dim=1).values, pair.max(dim=1).values
         keep = self.owned[lo]

@@ -111,7 +111,7 @@ def make_sharded_interphase_step(model, mesh):
         if step % c.contactmap_update_interval == 0:
             core_now, _ = model.scales(step * dt)
             window.add(contact_events(model.cell_layout(new_x), c.contactmap_distance * core_now,
-                                      begin, end))
+                                      begin, end, capacity=model.tick_capacity))
         return ShardedCarry(new_x, generator, semiaxes, window)
 
     return step_fn

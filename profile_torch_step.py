@@ -8,9 +8,14 @@ Builds the production nucleus (59,610 particles) as ``chip_smoke.py`` does
 briefly, and then times the layers of a G1 step one by one — each layer run
 ``--steps`` times between two ``torch.cuda.synchronize()`` calls on the host
 clock, so a layer's number holds its launches and its device time — and the
-whole step, a contact tick and a window merge the same way.  A
-``torch.profiler`` window over whole steps gives the device's busy share and
-the device time by kernel name.  The steps of the three mitotic phases (576
+whole step, a relaxation step, a contact tick (layout and the tick kernel;
+the kernel's search alone) and a window merge the same way.  The layers of a
+G1 step are the layout, the pair kernel, the nucleolar terms, the noise and
+the one launch of the rest kernel (bonds, wall, update, wall ODE); the rest
+kernel's bonds alone and wall alone, the update kernel and the pair kernel's
+first version are timed apart.  ``torch.profiler`` windows over whole G1
+steps, relaxation steps and ticks give the device's busy share, the device
+kernels started a step and the device time by kernel name.  The steps of the three mitotic phases (576
 coarse beads, 1,152 with sisters) are timed and profiled the same way, for
 their launches a step, and so is the G1 step of an ensemble of R = 1, 2, 4 and
 8 replicas of the nucleus in lock-step (one launch of the pair kernel a step
@@ -184,8 +189,11 @@ def main():
     from genome_cycle_tpu_torch import convert
     from genome_cycle_tpu_torch.models.interphase import EngineSettings, InterphaseModel
     from genome_cycle_tpu_torch.ops import pair_kernels as pk
-    from genome_cycle_tpu_torch.ops.contact import empty_window_acc, merge_events_acc
-    from genome_cycle_tpu_torch.ops.integrator import BDParams, bd_update
+    from genome_cycle_tpu_torch.ops.contact import (
+        contact_events, empty_window_acc, merge_events_acc,
+    )
+    from genome_cycle_tpu_torch.ops.integrator import BDParams, bd_update, standard_normal
+    from genome_cycle_tpu_torch.ops import step_rest
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -215,17 +223,34 @@ def main():
     core, bond = model.scales(step0 * c.timestep)
     kparams = chip_smoke.kernel_params(core, c)
     layout = model.cell_layout(x)
-    forces = torch.zeros_like(x)
+    forces = pk.ab_pair_forces(layout, kparams)[0]
 
     n = args.steps
+    noise = standard_normal(x, generator)
+    fused = model.update_rows(noise)
+    # The layers of a G1 step as it runs: layout, pair kernel, nucleolar
+    # terms (plain torch), the noise, and one launch of the rest kernel for
+    # bonds + wall + update + wall ODE.  Beside them, not part of a G1 step:
+    # the rest kernel's bonds alone and wall alone (as bonded_forces and
+    # wall_forces launch it for the sharded drivers and the energy pass),
+    # the update kernel (the relaxation's, with its displacement limit) and
+    # the pair kernel's first version.
     layers = {
         "layout_sort": host_ms(lambda: model.cell_layout(x), n),
         "pair_kernel": host_ms(lambda: pk.ab_pair_forces(layout, kparams), n),
-        # The kernel's first version, for comparison; no part of a step.
+        "nucleolar": host_ms(lambda: model.nucleolar_forces(x, bond, forces, None), n),
+        "noise": host_ms(lambda: standard_normal(x, generator), n),
+        "rest_kernel_g1_launch": host_ms(lambda: step_rest.rest(
+            x, forces, model.bond_rows(bond), model.wall_rows(semiaxes, core), fused), n),
+    }
+    apart = {
         "pair_kernel_first_version": host_ms(
             lambda: pk._ab_pair_forces_thread_per_bead(layout, kparams), n),
         "bonded": host_ms(lambda: model.bonded_forces(x, bond), n),
         "wall": host_ms(lambda: model.wall_forces_rows(x, semiaxes, core), n),
+        "update_with_limit": host_ms(lambda: bd_update(
+            x, forces, model.mobility, generator,
+            BDParams(c.temperature, c.timestep, c.relaxation_spacestep)), n),
         "update": host_ms(lambda: bd_update(
             x, forces, model.mobility, generator, BDParams(c.temperature, c.timestep)), n),
     }
@@ -236,8 +261,18 @@ def main():
         state = model._bd_step4(state, step0)
 
     step_ms = host_ms(whole_step, n)
+    relax_state = [state]
+
+    def relaxation_step():
+        relax_state[0] = model.relaxation_step(relax_state[0], 0)
+
+    relax_ms = host_ms(relaxation_step, n)
     events = model.contact_events_tick(state[0], step0)
     tick_ms = host_ms(lambda: model.contact_events_tick(state[0], step0), 10)
+    tick_layout = model.cell_layout(state[0])
+    cutoff = c.contactmap_distance * model.scales(step0 * c.timestep)[0]
+    tick_search_ms = host_ms(lambda: contact_events(tick_layout, cutoff,
+                                                    capacity=model.tick_capacity), 10)
     acc, acc_n = empty_window_acc(16 * model.n, device)
     acc, acc_n, _ = merge_events_acc(acc, acc_n, events)
     merge_ms = host_ms(lambda: merge_events_acc(acc, acc_n, events), 10)
@@ -247,6 +282,10 @@ def main():
     g1_window = profile_window(whole_step, 50, step_ms)
     by_kernel = g1_window.pop("by_kernel")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    relax_window = profile_window(relaxation_step, 50, relax_ms)
+    relax_window.pop("by_kernel")
+    tick_window = profile_window(lambda: model.contact_events_tick(state[0], step0), 10, tick_ms)
+    tick_window.pop("by_kernel")
     ensemble = ensemble_steps(model, state[0], state[2], step0, n)
     mitotic = mitotic_steps(store, config, state[0], device, n)
 
@@ -260,10 +299,14 @@ def main():
         "pairs_in_reach": pk.pairs_in_reach(layout, kparams),
         "events_per_tick": int(events.shape[0]),
         "layers_ms_per_step": layers,
-        "layers_sum_ms": sum(
-            ms for name, ms in layers.items() if name != "pair_kernel_first_version"),
+        "layers_sum_ms": sum(layers.values()),
+        "not_in_a_g1_step_ms": apart,
         "whole_step_ms": step_ms,
+        "relaxation_step_ms": relax_ms,
+        "relaxation_profiler": relax_window,
         "tick_ms": tick_ms,
+        "tick_search_ms": tick_search_ms,
+        "tick_profiler": tick_window,
         "merge_ms": merge_ms,
         "energy_pass_ms": energy_ms,
         "amortised_ms_per_step": step_ms + (tick_ms + merge_ms) / tick_every,

@@ -1,5 +1,7 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
-on a layout of several replicas; an ensemble run on the card; the
+on a layout of several replicas; the step kernels (the contact tick, the rest
+kernel with its wall reaction, the update) against theirs; an ensemble run on
+the card; the
 interphase step through the kernel against the C++ surrogate; and the
 analysis chain's device numerics on the card against the host.
 
@@ -389,3 +391,276 @@ def test_analysis_numerics_on_the_card_match_the_host(cuda_device):
     np.testing.assert_allclose(sign * ev1[ok], ev1_want[ok], atol=1e-4)
     np.testing.assert_allclose(sign * got[0].cpu().numpy(), want[0].numpy(), atol=1e-4)
     assert got[2] == pytest.approx(want[2], rel=1e-4)
+
+
+# -- the rest of the step: tick, bonds + wall, update ---------------------------
+#
+# Tolerances: the tick's pair sets are equal (r2 is formed in one fixed order
+# on both sides); forces, reaction and positions within 1e-5 of their largest
+# magnitude (the wall's derivatives in closed form against autograd, float32
+# sums in another order), energies 1e-5 relative.
+
+def _pair_set(events):
+    ev = events.cpu().numpy().reshape(-1, 3)
+    return sorted(zip(ev[:, 0].tolist(), ev[:, 1].tolist()))
+
+
+def _tick_layouts(device):
+    """Layouts made for the tick's control flow, with the home range each is
+    searched over: random beads, a cell fuller than a warp, a single-cell
+    grid, one bead, a padded buffer searched from past its first row into
+    the padding, and four replicas side by side."""
+    cases = []
+    x, af, bf = _beads(3000, seed=11)
+    cases.append(("3,000 beads", _layout((x, af, bf), device), 0, None))
+    for case in ("overfull cell", "single-cell grid", "one bead"):
+        cases.append((case, _control_flow_layout(case, device), 0, None))
+    valid = np.ones(len(x), bool)
+    valid[2200:] = False
+    xp = x.copy()
+    xp[2200:] = xp[0]
+    padded = pk.build_cell_layout(*(torch.as_tensor(v, device=device) for v in (xp, af, bf)),
+                                  1.2, 0.3, valid=torch.as_tensor(valid, device=device))
+    cases.append(("padded, home range", padded, 700, padded.n))
+    xs, af, bf = _stacked_beads(4, n=2000, seed=43)
+    cases.append(("4 replicas stacked", pk.build_cell_layout(
+        *(torch.as_tensor(v, device=device) for v in (xs, af, bf)), 1.2, 0.3), 0, None))
+    return cases
+
+
+@pytest.mark.gpu
+def test_contact_tick_kernel_matches_plain_version(cuda_device):
+    from genome_cycle_tpu_torch.ops import contact
+
+    for name, layout, begin, end in _tick_layouts(cuda_device):
+        before = contact.contact_events.launches
+        got = contact.contact_events(layout, 0.24, begin, end)
+        want = contact.contact_events_reference(layout, 0.24, begin, end)
+        torch.cuda.synchronize()
+        # A fresh capacity holds 16 rows a bead: the overfull cell's pairs
+        # exceed it, and the tick runs again with more.
+        rerun = len(want) > 16 * layout.n
+        assert contact.contact_events.launches == before + 1 + rerun, name
+        assert got.dtype == torch.int32 and (got[:, 2] == 1).all(), name
+        assert _pair_set(got) == _pair_set(want), name
+        if name == "one bead":
+            assert got.shape == (0, 3)
+        else:
+            assert len(want) > 0, name
+
+
+@pytest.mark.gpu
+def test_contact_tick_overflow_reruns_and_two_launches_merge_equal(cuda_device):
+    """A capacity too small: the tick grows it and searches again, and lists
+    the plain version's pairs.  Two launches list rows in their own orders;
+    the merged windows are equal to the bit."""
+    from genome_cycle_tpu_torch.ops import contact
+
+    layout = _layout(_beads(3000, seed=11), cuda_device)
+    want = contact.contact_events_reference(layout, 0.24)
+    capacity = contact.EventCapacity(64)
+    before = contact.contact_events.launches
+    got = contact.contact_events(layout, 0.24, capacity=capacity)
+    torch.cuda.synchronize()
+    assert contact.contact_events.launches == before + 2
+    assert capacity.rows >= len(want) and capacity.rows % 4096 == 0
+    assert _pair_set(got) == _pair_set(want)
+    merged = []
+    for _ in range(2):
+        acc, rows = contact.empty_window_acc(4 * len(want), cuda_device)
+        acc, rows, overflow = contact.merge_events_acc(
+            acc, rows, contact.contact_events(layout, 0.24, capacity=capacity))
+        assert overflow == 0
+        merged.append(acc[:rows])
+    assert torch.equal(*merged)
+    assert contact.contact_events.launches == before + 4
+
+
+def _rest_inputs(device, replicas=None, n=300, seed=31):
+    """Positions around an ellipsoidal wall (inside, outside, a bead at the
+    origin, one exactly on the wall), chains with tails and with bond and
+    loop masks switched off in a run, a force buffer, weights; (R, N, 3) for
+    ``replicas``, each with its own semiaxes."""
+    from genome_cycle_tpu_torch.ops.step_rest import BondRows, WallRows
+
+    rng = np.random.default_rng(seed)
+    shape = (n, 3) if replicas is None else (replicas, n, 3)
+    lead = () if replicas is None else (replicas,)
+    semiaxes = (np.asarray([1.0, 0.9, 0.8]) * (1.0 + 0.05 * rng.uniform(size=lead + (1,))))
+    directions = rng.normal(size=shape)
+    directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
+    scale = rng.uniform(0.0, 1.15, shape[:-1] + (1,))
+    x = directions * semiaxes[..., None, :] * scale
+    x[..., 0, :] = 0.0
+    x[..., 1, :] = 0.0
+    x[..., 1, 0] = semiaxes[..., 0]
+    mask = np.ones(n, bool)
+    loop = np.ones(n, bool)
+    for tail in (119, 120, 299):              # chains [0, 120), [120, 121), [121, 300)
+        mask[tail] = False
+    for tail in (118, 119, 120, 298, 299):
+        loop[tail] = False
+    mask[50:60] = False
+    loop[70:75] = False
+
+    def t(v, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+
+    bonds = BondRows(t(mask, torch.bool), t(rng.uniform(50, 100, n)),
+                     t(rng.uniform(0.05, 0.08, n)), t(loop, torch.bool),
+                     t(rng.uniform(1, 5, n)), 0.8)
+    params = dict(a_energy=2.5, a_diameter=0.15 * 0.7, b_energy=2.5, b_diameter=0.12 * 0.7,
+                  packing_spring=1000.0)
+    wall = WallRows(t(semiaxes.reshape(lead + (3,))), t(rng.uniform(0.5, 1.0, n)),
+                    t(rng.uniform(0.5, 5.5, n)), params)
+    forces = t(rng.normal(0, 10.0, shape))
+    return t(x), forces, bonds, wall
+
+
+def _rest_plain(x, forces, bonds, wall):
+    """The plain composition the rest kernel replaces
+    (``step_rest.rest_reference``: ``shift_bond_forces`` for chain bonds and
+    loops, the autograd wall), in float64 on the same inputs: the wall
+    distance is a small difference near the wall, which a float32 evaluation
+    rounds to about 1e-5 of max|F|."""
+    from genome_cycle_tpu_torch.ops.step_rest import rest_reference
+
+    wide = rest_reference(x.double(), forces.double(), bonds,
+                          wall._replace(semiaxes=wall.semiaxes.double()), with_energy=True)
+    return wide.out, wide.reaction, wide.bonded_energy, wide.wall_energy
+
+
+def _assert_close(got, want, tol=1e-5):
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [None, 4])
+def test_rest_kernel_matches_plain_version(cuda_device, replicas):
+    from genome_cycle_tpu_torch.ops import step_rest
+    from genome_cycle_tpu_torch.ops.wall import wall_forces_reference
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device, replicas)
+    before = step_rest.launch_rest.launches
+    rest = step_rest.launch_rest(x, forces, bonds, wall, with_energy=True)
+    again = step_rest.launch_rest(x, forces, bonds, wall, with_energy=True)
+    f_p, r_p, eb_p, ew_p = _rest_plain(x, forces, bonds, wall)
+    torch.cuda.synchronize()
+    assert step_rest.launch_rest.launches == before + 2
+    assert torch.isfinite(rest.out).all()
+    _assert_close(rest.out, f_p)
+    _assert_close(rest.reaction, r_p)
+    assert float(rest.bonded_energy) == pytest.approx(float(eb_p), rel=1e-5)
+    assert float(rest.wall_energy) == pytest.approx(float(ew_p), rel=1e-5)
+    for a, b in zip(rest, again):                  # two launches, the same bits
+        assert a is None or torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    # Masks off: the bonds alone, the wall alone.
+    only_bonds = step_rest.launch_rest(x, bonds=bonds._replace(
+        mask=torch.zeros_like(bonds.mask), loop_mask=torch.zeros_like(bonds.loop_mask)))
+    only_wall = step_rest.launch_rest(x, wall=wall)
+    torch.cuda.synchronize()
+    assert not only_bonds.out.any() and only_bonds.reaction is None
+    wide_wall = wall_forces_reference(x.double(), wall.semiaxes.double(), wall.a_mix,
+                                      wall.b_mix, wall.params)[0]
+    _assert_close(only_wall.out, wide_wall)
+    assert not only_wall.out[..., 0, :].any()      # the bead at the origin
+    # The bead on the wall: eps leaves it 1e-12 from the wall in float64.
+    assert float(only_wall.out[..., 1, :].abs().max()) < 1e-6
+
+
+@pytest.mark.gpu
+def test_rest_kernel_keeps_its_tickets_per_stream(cuda_device):
+    """Launches on two streams at once each find their own last block: the
+    same reaction and energies as a launch alone."""
+    from genome_cycle_tpu_torch.ops import step_rest
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device, 4)
+    want = step_rest.launch_rest(x, forces, bonds, wall, with_energy=True)
+    torch.cuda.synchronize()
+    got = []
+    for stream in (torch.cuda.current_stream(cuda_device), torch.cuda.Stream(cuda_device)):
+        with torch.cuda.stream(stream):
+            got.append(step_rest.launch_rest(x, forces, bonds, wall, with_energy=True))
+    torch.cuda.synchronize()
+    for rest in got:
+        for a, b in zip(rest[:4], want[:4]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [None, 4])
+@pytest.mark.parametrize("spacestep", [None, 1e-3])
+def test_update_kernel_matches_plain_version(cuda_device, replicas, spacestep):
+    from genome_cycle_tpu_torch.ops import integrator, step_rest
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device, replicas, seed=32)
+    mobility = torch.as_tensor(np.random.default_rng(3).uniform(0.5, 2.0, x.shape[-2]),
+                               dtype=torch.float32, device=cuda_device)
+    noise = torch.randn(x.shape, device=cuda_device)
+    params = integrator.BDParams(1.0, 1e-4, spacestep)
+    before = step_rest.launch_update.launches
+    got = integrator.bd_update(x, forces * 100, mobility, None, params, noise=noise)
+    again = integrator.bd_update(x, forces * 100, mobility, None, params, noise=noise)
+    want = integrator.bd_update_reference(x, forces * 100, mobility, None, params, noise=noise)
+    torch.cuda.synchronize()
+    assert step_rest.launch_update.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, want)
+    _assert_close(got - x, want - x, 1e-4)         # the displacement itself
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [None, 4])
+def test_fused_g1_update_matches_plain_composition(cuda_device, replicas):
+    """Bonds + wall + update + wall ODE in one launch against the plain
+    composition on the same noise."""
+    from genome_cycle_tpu_torch.ops import integrator, step_rest
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device, replicas, seed=33)
+    mobility = torch.as_tensor(np.random.default_rng(4).uniform(0.5, 2.0, x.shape[-2]),
+                               dtype=torch.float32, device=cuda_device)
+    noise = torch.randn(x.shape, device=cuda_device)
+    spring = (3e4, 2e4, 1e4)
+    update = step_rest.UpdateRows(mobility, noise, 1.0, 1e-5, 1e-5 * 2e-4, spring)
+    rest = step_rest.launch_rest(x, forces, bonds, wall, update)
+    again = step_rest.launch_rest(x, forces, bonds, wall, update)
+    f_p, r_p, _, _ = _rest_plain(x, forces, bonds, wall)
+    want = integrator.bd_update_reference(x, f_p, mobility, None,
+                                          integrator.BDParams(1.0, 1e-5), noise=noise)
+    springs = torch.as_tensor(spring, device=cuda_device)
+    semi = wall.semiaxes + 1e-5 * 2e-4 * (r_p - springs * wall.semiaxes)
+    torch.cuda.synchronize()
+    assert torch.equal(rest.out, again.out) and torch.equal(rest.semiaxes, again.semiaxes)
+    _assert_close(rest.out, want)
+    _assert_close(rest.out - x, want - x, 1e-4)
+    _assert_close(rest.semiaxes, semi)
+
+
+@pytest.mark.gpu
+def test_step_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """Wrong dtype, device or contiguity raise; nothing falls back to the
+    plain version."""
+    from genome_cycle_tpu_torch.ops import contact, integrator, step_rest
+    from genome_cycle_tpu_torch.ops.wall import wall_forces
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device)
+    with pytest.raises(TypeError):
+        step_rest.launch_rest(x.double(), forces, bonds, wall)
+    with pytest.raises(ValueError):
+        step_rest.launch_rest(x, forces.t().contiguous().t(), bonds, wall)
+    with pytest.raises(ValueError):
+        step_rest.launch_rest(x.cpu(), forces.cpu())
+    with pytest.raises(ValueError):                 # weights on another device
+        wall_forces(x, wall.semiaxes, wall.a_mix.cpu(), wall.b_mix, wall.params)
+    with pytest.raises(TypeError):
+        integrator.bd_update(x.double(), forces.double(), wall.a_mix, None,
+                             integrator.BDParams(1.0, 1e-4), noise=forces.double())
+    with pytest.raises(ValueError):
+        integrator.bd_update(x, forces, wall.a_mix[:10], None,
+                             integrator.BDParams(1.0, 1e-4), noise=forces)
+    layout = _layout(_beads(100, seed=12), cuda_device)
+    with pytest.raises(TypeError):
+        contact.contact_events(layout._replace(xyz=layout.xyz.double()), 0.24)
+    with pytest.raises(ValueError):
+        contact.contact_events(layout, 0.31)

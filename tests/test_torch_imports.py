@@ -20,6 +20,11 @@ MODULES = [
     "genome_cycle_tpu_torch.models.transitions",
     "genome_cycle_tpu_torch.ops.bonded",
     "genome_cycle_tpu_torch.ops.pair_kernels",
+    # The wrappers of the step kernels.
+    "genome_cycle_tpu_torch.ops.contact",
+    "genome_cycle_tpu_torch.ops.integrator",
+    "genome_cycle_tpu_torch.ops.step_rest",
+    "genome_cycle_tpu_torch.ops.wall",
     "genome_cycle_tpu_torch.parallel.ensemble",
     "genome_cycle_tpu_torch.parallel.mesh",
     "genome_cycle_tpu_torch.parallel.halo",

@@ -258,8 +258,9 @@ def test_step_uses_lagged_scales_and_tick_uses_current(models, monkeypatch):
 
     seen = {}
 
-    def spy(layout, cutoff):
+    def spy(layout, cutoff, capacity=None):
         seen["cutoff"], seen["xyz"] = cutoff, layout.xyz[:, :3][torch.argsort(layout.order)]
+        seen["capacity"] = capacity
         return torch.zeros((0, 3), dtype=torch.int32)
 
     monkeypatch.setattr(tinter, "contact_events", spy)
@@ -268,6 +269,7 @@ def test_step_uses_lagged_scales_and_tick_uses_current(models, monkeypatch):
     assert asked == [pytest.approx(7 * c.timestep)]
     assert seen["cutoff"] == pytest.approx(c.contactmap_distance * real_scales(7 * c.timestep)[0])
     assert torch.equal(seen["xyz"], new_state[0])
+    assert seen["capacity"] is tmodel.tick_capacity      # kept across ticks
 
 
 # -- the slice as a whole -----------------------------------------------------
