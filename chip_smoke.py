@@ -20,10 +20,12 @@ prints no result.  It
    control flow, and at three structures of the main path's 59,610 particles;
    checks that two launches give the same bits; and times new and first
    version in turns; then phase "step kernels": the tick (also forced to
-   overflow and run again), the rest kernel with its wall reaction, the
-   update kernel and the fused G1 launch against their plain versions at the
-   same three structures and on the ensemble's four replicas stacked, timed
-   beside their bounds; 200 G1 steps at T = 0 through the kernels against the
+   overflow and run again, and its first version) with the half-stencil
+   candidates a row, mean and largest, the rest kernel with its wall reaction
+   and the nucleolar rows, the update kernel and the fused G1 launch against
+   their plain versions at the same three structures and on the ensemble's
+   four replicas stacked, timed beside their bounds (the tick and its first
+   version in turns); 200 G1 steps at T = 0 through the kernels against the
    plain composition, step for step; and the device kernels a G1 step, a
    relaxation step and a tick start (``torch.profiler``);
 4. drives the port's main path at full width, a whole cell cycle of the
@@ -62,7 +64,8 @@ prints no result.  It
    must resume there and write every G1 frame and window once;
 10. phase "gate": the port's statistical gate against the C++ surrogate
    (``tests/test_torch_correlation.py``, both configurations, each replica
-   set in one stacked run through the kernel; the surrogate built with
+   set in one stacked run through the kernels, one pair-kernel and one
+   rest-kernel launch a step for all replicas; the surrogate built with
    ``g++``);
 11. prints the card line, a ``{"kernels": [...]}`` line and, last, the result
    line ``{"ok": true, "device": {...}}``.
@@ -704,7 +707,7 @@ def run_analysis(stores, device, card):
     from genome_cycle_tpu_torch.analysis import cool, coolio, dephase, pc1
 
     if torch.backends.cuda.matmul.allow_tf32:
-        fail("analysis", "TF32 is on: the power step must run in float32")
+        fail("analysis", "TF32 is on: float32 products must run in full float32")
     cpu = torch.device("cpu")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -813,11 +816,12 @@ def run_analysis(stores, device, card):
                       "(no threshold: a run this short need not form compartments)")
 
     step_ms = pc_timings["power_seconds"] / pc_timings["power_steps"] * 1e3
-    bound_ms = 2 * 4 * nh * kept / PEAK_BYTES_PER_S * 1e3
-    # The step's two products apart, on a matrix of the same shape: D v
-    # reads rows, Dᵀ w the same memory through the transpose.
-    probe = torch.randn(nh, kept, device=device)
-    v, w = torch.randn(kept, device=device), torch.randn(nh, device=device)
+    bound_ms = 2 * 8 * nh * kept / PEAK_BYTES_PER_S * 1e3
+    # The step's two products apart, on a float64 matrix of the same shape:
+    # D v reads rows, Dᵀ w the same memory through the transpose.
+    probe = torch.randn(nh, kept, dtype=torch.float64, device=device)
+    v = torch.randn(kept, dtype=torch.float64, device=device)
+    w = torch.randn(nh, dtype=torch.float64, device=device)
     mv_ms = time_ms(lambda: torch.mv(probe, v), 20)
     mv_t_ms = time_ms(lambda: torch.mv(probe.T, w), 20)
     del probe
@@ -827,7 +831,7 @@ def run_analysis(stores, device, card):
         phase("time", f"analysis {label}: {seconds[name] * 1e3:.1f} ms (host clock around a "
                       "synchronize)")
     phase("time", f"analysis power step: {step_ms:.4f} ms over {pc_timings['power_steps']} "
-                  f"steps, bound {bound_ms:.4f} ms (2 x 4 x {nh} x {kept} bytes / 3.35 TB/s; "
+                  f"steps, bound {bound_ms:.4f} ms (2 x 8 x {nh} x {kept} bytes / 3.35 TB/s; "
                   f"{bound_ms / step_ms:.3f} of it); peak device memory of the phase "
                   f"{peak / 2**20:.1f} MiB; {card}")
     phase("time", f"analysis power step's products alone (CUDA events, 20 launches): D v "
@@ -1187,7 +1191,7 @@ def run_gate(device, pk):
     phase("gate", f"g++: {version}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_correlation as gate
-    from genome_cycle_tpu_torch.ops import _build
+    from genome_cycle_tpu_torch.ops import _build, step_rest
 
     exe = _build.build_dir() / "surrogate_ref"
     exe.parent.mkdir(parents=True, exist_ok=True)
@@ -1197,19 +1201,24 @@ def run_gate(device, pk):
     try:
         for name, run in (("chain", gate.contact_map_gate), ("nucleolus", gate.nucleolus_gate)):
             before = pk.ab_pair_forces.launches
+            rest_before = step_rest.launch_rest.launches
             try:
                 numbers, seconds = synchronized(
                     lambda: run(exe, pathlib.Path(tempfile.mkdtemp(dir=workdir)), device))
             except AssertionError:
                 fail("gate", f"{name}: {traceback.format_exc().splitlines()[-2].strip()}")
             launches = pk.ab_pair_forces.launches - before
+            rest_launches = step_rest.launch_rest.launches - rest_before
             phase("gate", f"{name}: " + ", ".join(f"{k} {v:.5g}" for k, v in numbers.items())
-                          + f"; {launches} kernel launches for {gate.STEPS} steps of "
+                          + f"; {launches} pair-kernel and {rest_launches} rest-kernel launches "
+                          f"for {gate.STEPS} steps of "
                           f"{gate.REPLICAS if name == 'chain' else gate.NUC_REPLICAS} "
                           f"replicas; {seconds:.1f} s, surrogate runs included")
-            if launches != gate.STEPS:
-                fail("gate", f"{name}: {launches} launches, not one a step for all replicas")
-            results[name] = dict(numbers, seconds=seconds, launches=launches)
+            if launches != gate.STEPS or rest_launches != gate.STEPS:
+                fail("gate", f"{name}: {launches} pair-kernel and {rest_launches} rest-kernel "
+                             "launches, not one of each a step for all replicas")
+            results[name] = dict(numbers, seconds=seconds, launches=launches,
+                                 rest_launches=rest_launches)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return results
@@ -1419,6 +1428,12 @@ def print_production_rates(summary):
     analysis = summary["analysis"]
     phase("rate", "analysis: " + ", ".join(f"{k} {v:.3f} s" for k, v in analysis["seconds"].items())
                   + f"; peak device memory {analysis.get('peak_bytes', 0) / 2**20:.1f} MiB")
+    steps = {key: value["seconds"] for entry in summary["stages"].values()
+             for key, value in entry.items() if isinstance(value, dict) and "steps" in value}
+    mitotic = sum(v for k, v in steps.items() if k in ("anaphase", "telophase", "prometaphase"))
+    interphase = sum(v for k, v in steps.items() if k in ("relaxation", "g1"))
+    phase("rate", f"the cycle's steps: mitotic {mitotic:.1f} s (anaphase, telophase, "
+                  f"prometaphase), interphase {interphase:.1f} s (relaxation, G1)")
 
 
 def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_OUTPUT):
@@ -1609,9 +1624,9 @@ TICK_FORCED_ROWS = 4096
 # Bytes the rest kernel moves in G1 and the update kernel alone: for each
 # bead of each replica its position, force and noise read once and its new
 # position written; for each bead once, the rows all replicas share (the
-# rest kernel: mobility, two masks, three bond rows, two wall weights; the
-# update: the mobility).  Operations: the tick's distance test for each
-# candidate of the half stencil.
+# rest kernel: mobility, two masks, three bond rows, two wall weights, and
+# the nucleolar table once; the update: the mobility).  Operations: the
+# tick's distance test for each candidate of the half stencil.
 STEP_BYTES_PER_REPLICA_BEAD = 12 + 12 + 12 + 12
 REST_SHARED_BYTES_PER_BEAD = 4 + 2 + 12 + 8
 UPDATE_SHARED_BYTES_PER_BEAD = 4
@@ -1624,8 +1639,8 @@ STEP_KERNELS = {
                      "(block_contact_events)"),
     "step_rest": ("genome_cycle_tpu_torch/csrc/step_rest.cu",
                   "JAX: XLA-fused, genome_cycle_tpu/models/interphase.py:688 (_bd_step4: "
-                  "ops/bonded.py:40 shift_bond_forces, ops/wall.py:57 wall_forces, the update, "
-                  "the wall ODE)"),
+                  "bonded_forces :425 with ops/bonded.py:40 shift_bond_forces, pair_bond_forces "
+                  "and the droplet, ops/wall.py:57 wall_forces, the update, the wall ODE)"),
     "bd_update": ("genome_cycle_tpu_torch/csrc/step_rest.cu",
                   "JAX: XLA-fused, genome_cycle_tpu/ops/integrator.py:32 (bd_update)"),
 }
@@ -1675,16 +1690,16 @@ def pair_keys(events):
     return torch.sort((ev[:, 0] << 32) | ev[:, 1]).values
 
 
-def half_stencil_candidates(layout):
-    """Candidates (i, j > i) the tick tests: the half stencil's ranges of
-    every real row, the own cell's rows up to i left out."""
+def half_stencil_counts(layout):
+    """Candidates (i, j > i) the tick tests, for each real row: the half
+    stencil's ranges, the own cell's rows up to i left out."""
     from genome_cycle_tpu_torch.ops.pair_kernels import stencil_ranges
 
-    total = sum(int(count.sum()) for _, count in stencil_ranges(layout, half=True))
     real = int(layout.cell_start[-1])
+    total = sum(count for _, count in stencil_ranges(layout, half=True))[:real]
     rows = torch.arange(real, device=layout.cell_id.device)
     own = rows - layout.cell_start.to(torch.int64)[layout.cell_id[:real].to(torch.int64)]
-    return total - int((own + 1).sum())
+    return total - (own + 1)
 
 
 class StepErrors:
@@ -1711,6 +1726,17 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     cutoff = c.contactmap_distance * core
     want = contact.contact_events_reference(layout, cutoff)
     keys = pair_keys(want)
+    per_row = half_stencil_counts(layout)
+    candidates = int(per_row.sum())
+    cell_rows = layout.cell_start[1:] - layout.cell_start[:-1]
+    phase(name, f"tick: {candidates} half-stencil candidates over {per_row.numel()} rows, a row "
+                f"{candidates / max(per_row.numel(), 1):.1f} on the mean, {int(per_row.max())} "
+                f"at most (the 99th percentile "
+                f"{float(torch.quantile(per_row.double(), 0.99)):.0f}); the fullest cell holds "
+                f"{int(cell_rows.max())} rows")
+    first = contact._contact_events_launched(layout, cutoff, first_version=True)
+    if not torch.equal(pair_keys(first), keys):
+        fail(name, "the tick kernel's first version lists other pairs than the plain search")
     for rows in (None, TICK_FORCED_ROWS):
         before = contact.contact_events.launches
         capacity = contact.EventCapacity(rows)
@@ -1728,9 +1754,10 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     # Held against the plain version in float64 on the same inputs: the wall
     # distance is a small difference near the wall, and the plain version in
     # float32 lies up to about 1e-5 of max|F| from it (read here, not held).
-    pair, _ = model.pair_forces_full(x, core)
-    forces0, _ = model.nucleolar_forces(x, bond, pair, 0.0)
+    forces0, _ = model.pair_forces_full(x, core)
     bonds, wall = model.bond_rows(bond), model.wall_rows(semiaxes, core)
+    if bonds.nucleolar is None:
+        fail(name, "the design has no nucleolar rows for the rest kernel to take")
     kernel = [step_rest.rest(x, forces0.clone(), bonds, wall, with_energy=True)
               for _ in range(2)]
     wide = step_rest.rest_reference(x.double(), forces0.double(), bonds,
@@ -1748,7 +1775,9 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     df32 = float((f_p - wide.out).abs().max())
     dr32 = float((r_p - wide.reaction).abs().max())
     e_rel = abs(e_k - e_w) / max(abs(e_w), 1e-30)
-    phase(name, f"rest kernel against the plain version in float64: max|dF| {df:.3e} of "
+    phase(name, f"rest kernel (nucleolar rows live: {bonds.nucleolar.bonds.shape[0]} NOR "
+                f"bonds, {bonds.nucleolar.targets.shape[0]} droplet targets) against the plain "
+                f"version in float64: max|dF| {df:.3e} of "
                 f"max|F| {fmax:.3e} (the plain version in float32: {df32:.3e}); reaction "
                 f"{r_k.cpu().numpy().round(3).tolist()}, max diff {dr:.3e} of {rmax:.3e} "
                 f"(float32 autograd: {dr32:.3e}); bonded + wall energy {e_k:.6e} against "
@@ -1803,46 +1832,48 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     count = torch.zeros(1, dtype=torch.int32, device=x.device)
     cutoff2 = float(cutoff) * float(cutoff)
 
-    def tick_kernel():
+    def tick_kernel(first_version=False):
         count.zero_()
-        contact._tick_launch(layout, cutoff2, 0, layout.n, buffer, count)
+        contact._tick_launch(layout, cutoff2, 0, layout.n, buffer, count, first_version)
 
-    tick_ms = time_ms(tick_kernel, 20)
+    tick_first_ms, tick_ms = time_in_turns(lambda: tick_kernel(True), tick_kernel, 20)
     tick_wrapper_ms = time_ms(
         lambda: contact.contact_events(layout, cutoff, capacity=capacity), 20)
     tick_plain_ms = time_ms(lambda: contact.contact_events_reference(layout, cutoff), 2)
-    candidates = half_stencil_candidates(layout)
     real = int(layout.cell_start[-1])
     tick_ops = OPS_DISTANCE_TEST * candidates / PEAK_FP32_FLOPS * 1e3
     tick_bytes = ((TICK_BYTES_PER_ROW * real + 4 * layout.num_cells
                    + TICK_BYTES_PER_EVENT * len(want)) / PEAK_BYTES_PER_S * 1e3)
     replicas, n = (1, x.shape[0]) if x.dim() == 2 else (x.shape[0], x.shape[1])
-    rest_ms = time_ms(lambda: step_rest.launch_rest(x, forces0, bonds, wall, update), 50)
+    rest_ms = time_ms(lambda: step_rest.launch_rest(x, forces0, bonds, wall, update), 20)
     rest_plain_ms = time_ms(lambda: step_rest.rest_reference(x, forces0, bonds, wall, update), 5)
     relax = BDParams(c.temperature, dt, c.relaxation_spacestep)
     update_ms = time_ms(lambda: step_rest.launch_update(
-        x, f_p, model.mobility, noise, c.temperature, dt, c.relaxation_spacestep), 50)
+        x, f_p, model.mobility, noise, c.temperature, dt, c.relaxation_spacestep), 20)
     update_plain_ms = time_ms(
         lambda: bd_update_reference(x, f_p, model.mobility, None, relax, noise=noise), 5)
     set_step_launches(counts)
     rest_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + REST_SHARED_BYTES_PER_BEAD) * n
-                  / PEAK_BYTES_PER_S * 1e3)
+                  + 4 * bonds.nucleolar.table.numel()) / PEAK_BYTES_PER_S * 1e3
     update_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + UPDATE_SHARED_BYTES_PER_BEAD) * n
                     / PEAK_BYTES_PER_S * 1e3)
     timed = {
         "contact_tick": dict(ms=tick_ms, plain_ms=tick_plain_ms, bound_ms=max(tick_ops, tick_bytes),
                              bound_by="operations" if tick_ops >= tick_bytes else "bytes",
                              events=len(want), half_stencil_candidates=candidates, rows=real,
-                             wrapper_ms=tick_wrapper_ms),
+                             candidates_a_row_mean=candidates / max(real, 1),
+                             candidates_a_row_max=int(per_row.max()),
+                             wrapper_ms=tick_wrapper_ms, first_version_ms=tick_first_ms),
         "step_rest": dict(ms=rest_ms, plain_ms=rest_plain_ms, bound_ms=rest_bytes,
                           bound_by="bytes", replicas=replicas, beads=n,
-                          launch="bonds + wall + update + ODE"),
+                          launch="bonds + nucleolar rows + wall + update + ODE"),
         "bd_update": dict(ms=update_ms, plain_ms=update_plain_ms, bound_ms=update_bytes,
                           bound_by="bytes", replicas=replicas, beads=n,
                           launch="with the displacement limit"),
     }
-    phase("time", f"{label}: tick kernel {tick_ms:.4f} ms, its wrapper with the count read "
-                  f"back {tick_wrapper_ms:.4f} ms ({len(want)} pairs, {candidates} "
+    phase("time", f"{label}: tick kernel {tick_ms:.4f} ms (its first version, in turns, "
+                  f"{tick_first_ms:.4f} ms: {tick_first_ms / tick_ms:.2f} times), its wrapper "
+                  f"with the count read back {tick_wrapper_ms:.4f} ms ({len(want)} pairs, {candidates} "
                   f"half-stencil candidates; plain {tick_plain_ms:.2f} ms, bound "
                   f"{max(tick_ops, tick_bytes):.5f} ms); rest kernel, G1 launch {rest_ms:.4f} ms "
                   f"(plain {rest_plain_ms:.3f} ms, bound {rest_bytes:.5f} ms); update kernel "
@@ -1874,8 +1905,7 @@ def zero_temperature_steps(model, x0, semiaxes0):
     def plain_step(x, semiaxes, step):
         core, bond = model.scales((step - 1) * dt)
         pair, _ = pk.ab_pair_forces_reference(model.cell_layout(x), model.pair_kernel_params(core))
-        forces, _ = model.nucleolar_forces(x, bond, pair, 0.0)
-        rest = step_rest.rest_reference(x, forces, model.bond_rows(bond),
+        rest = step_rest.rest_reference(x, pair, model.bond_rows(bond),
                                         model.wall_rows(semiaxes, core), model.update_rows(zeros))
         return rest.out, rest.semiaxes
 
@@ -1926,6 +1956,8 @@ def step_kernel_entries(launches, step_errors, timed, **extra):
             "shape": {k: v for k, v in t.items()
                       if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
         })
+        if "first_version_ms" in t:
+            entries[-1]["previous_ms"] = t["first_version_ms"]
     entries[list(STEP_KERNELS).index("step_rest")]["shape"].update(extra)
     return entries
 

@@ -18,9 +18,12 @@ the port's arithmetic differs from the JAX package's numpy:
   when all its finite entries are equal;
 - after the mean imputation no entry is NaN, so the JAX package's
   ``nansum(weights[:, None] * data, 0)`` is ``data.T @ (data @ v)``: two
-  ``torch.mv`` calls a step, in float32 (the JAX package's start vector
-  ``ones / np.sqrt(dim)`` is float64 under numpy 2, which runs its iteration
-  in float64);
+  ``torch.mv`` calls a step.  The kept columns are standardized and iterated
+  in float64, as the JAX package's iteration runs (its start vector
+  ``ones / np.sqrt(dim)`` is float64 under numpy 2): a weak PC1 converges
+  slowly, and in float32 the rounding of two devices could stop the
+  iteration a step apart, which moves pc1 by about 1e-3 of its largest
+  value;
 - divisions by a scalar go through a 0-d tensor on the device, a true
   division as numpy's, not a product with the reciprocal.
 """
@@ -192,7 +195,7 @@ def compute_pc1(
         # empty ones.
         _, col_std = column_moments(data_matrix)
         selection &= torch.nan_to_num(col_std) > 0
-    data_matrix = data_matrix[:, selection]
+    data_matrix = data_matrix[:, selection].double()
     data_matrix.masked_fill_(torch.isinf(data_matrix), math.nan)
     mean, _ = column_moments(data_matrix)
     data_matrix -= mean.to(data_matrix.dtype)

@@ -1,21 +1,29 @@
 // The O(N) rest of a Brownian-dynamics step, for NVIDIA Hopper (sm_90a):
-// chain and loop bonds, the ellipsoidal wall with its per-axis reaction, and
-// the Euler-Maruyama update.
+// chain and loop bonds, the nucleolar bonds and droplet, the ellipsoidal wall
+// with its per-axis reaction, and the Euler-Maruyama update.
 //
 // The JAX package has no Pallas kernel for this work: XLA fuses it into a few
 // device kernels of each step, genome_cycle_tpu/models/interphase.py:688-712
-// (_bd_step4: ops/bonded.py::shift_bond_forces, ops/wall.py::wall_forces by
-// jax.value_and_grad, ops/integrator.py::bd_update, the wall ODE).  Eager
-// PyTorch runs it as a couple of hundred small launches, the wall's autograd
-// alone about a hundred.  Here it is one thread per bead row of positions
-// (R, N, 3): R replicas of one topology, each with its own semiaxes.
+// (_bd_step4: bonded_forces (:425, ops/bonded.py::shift_bond_forces and
+// pair_bond_forces, ops/neighbor.py::pairwise_forces_dense for the droplet),
+// ops/wall.py::wall_forces by jax.value_and_grad, ops/integrator.py::bd_update,
+// the wall ODE).  Eager PyTorch runs it as a couple of hundred small launches,
+// the wall's autograd alone about a hundred.  Here it is one thread per bead
+// row of positions (R, N, 3): R replicas of one topology, each with its own
+// semiaxes.  One launch computes everything _bd_step4 computes but the pair
+// force.
 //
-// step_rest_kernel adds to a force buffer that already holds the pair force
-// (and the nucleolar terms):
+// step_rest_kernel adds to a force buffer that already holds the pair force:
 //   - chain bonds (i, i+1), semispring K/s^2, l*s, where bond_mask[i];
 //   - loops (i, i+2), harmonic K/s^2, where loop_mask[i];
 //   each bead forms its own two (four) terms from its neighbours' positions,
 //   the sums shift_bond_forces forms with rolls: no atomics;
+//   - the nucleolar rows (a few dozen: the NOR beads and the nucleolar
+//   particles): the NOR semisprings K_nuc/s^2, l_nuc*s, each bond read by both
+//   of its ends from a small table, and the droplet, a softwell<6> among the
+//   targets (force cut at the cutoff, energy shifted to zero there), which a
+//   target sums over the other targets itself.  Again a row sums its own
+//   terms: no atomics and no scatter;
 //   - the wall: d = sqrt(r2/s2) - sqrt(r2) (taken in float64), r2 = |x|^2 + eps,
 //     s2 = sum x_k^2/a_k^2 + eps, the softcore<2,3>/<8,3> at half diameters
 //     weighted by wall_a, wall_b inside (d > 0), the harmonic on d^2 outside,
@@ -26,12 +34,12 @@
 //       F_k = c d dd/dx_k,   reaction_k = sum over beads of c d dd/da_k.
 // It writes the forces (in place, if asked), or, given the mobility and the
 // noise, the new positions x + mu F dt + sqrt(2 mu kT dt) xi out of place (the
-// G1 step in one launch).  The reaction and the bonded and wall energies are
-// reduced per replica without atomics on the values: every block writes its
-// partial sums (a fixed-order tree in shared memory), and the block that
-// arrives last (a ticket counter per replica, reset by that block) adds the
-// partials in block order.  Two launches give the same bits.  That block also
-// moves the semiaxes by the wall ODE a + rate (reaction - spring a).
+// G1 step in one launch).  The reaction and the energies (bonded, which takes
+// the nucleolar terms too, and wall) are reduced per replica without atomics
+// on the values, and the block that arrives last (a ticket counter per
+// replica, reset by that block) adds the blocks' partials in block order and
+// moves the semiaxes by the wall ODE a + rate (reaction - spring a).  Two
+// launches give the same bits.
 //
 // drift_limit_kernel and bd_update_kernel are the update alone
 // (ops/integrator.py::bd_update): with a displacement limit (the relaxation's
@@ -39,10 +47,33 @@
 // any order) and writes its effective timestep on the device, so the step
 // needs no host synchronisation; the second moves the beads.
 //
-// Bound: bytes.  A bead reads its position, force, noise, mobility, masks,
-// bond rows and wall weights once (about 70 bytes; the neighbours' positions
-// come from cache) and writes 12, against some 150 operations: far below the
-// card's 20 operations a byte.  One launch in place of a hundred is the point.
+// Bound and design.  The bound is bytes: a bead reads its position, force,
+// noise, mobility, masks, bond rows and wall weights once (74 bytes) and
+// writes 12, against some 150 operations, far below the card's 20 operations
+// a byte; at the main path's 59,610 beads that is 1.3 us at 3.35 TB/s.  A
+// launch of this size is held instead by its chain of latencies: the loads,
+// the float64 wall, the block's sums, the ticket and the last block's pass.
+// What the design does about each:
+//   - the row's own data and the semiaxes are loaded first, before the one
+//     barrier, so that their latency overlaps the nucleolar scan, and the
+//     warps then run to the end on their own (no staging through shared
+//     memory: a barrier after the loads and one before the stores made every
+//     warp wait for the slowest, and timed slower);
+//   - 512 threads a block, a row each: 117 blocks, one wave on 132 SMs, half
+//     the tickets and partials of 256;
+//   - block sums by warp shuffles (5 levels), then one warp over the 16 warps'
+//     partials; the last block's pass is one warp over the blocks' partials,
+//     four loads a lane in flight, no further barrier;
+//   - in the wall, the float64 chain is one sqrt and one rsqrt in parallel:
+//     d = sqrt(r2) (1/sqrt(s2) - 1), with s2 from 1/a_k^2 taken while the
+//     row loads, in place of four dependent divisions and roots;
+//   - the nucleolar rows cost a row without them nothing from memory: one
+//     warp a block finds which of the table's sorted rows fall in its range
+//     (a few dozen entries, from L2); a block that holds some copies the table
+//     and its rows' positions to shared memory, eight loads a lane in flight,
+//     and each such row makes one call, so that the rows of a warp run their
+//     terms side by side (a call in the loop over the block's rows ran them
+//     one after the other, some 400 dependent loads).
 
 #include <cuda_runtime.h>
 
@@ -63,6 +94,16 @@ struct RestArgs {
     const unsigned char* loop_mask;
     const float* loop_k;
     float bond_s2, bond_s;             // K / s^2, l * s
+    // The nucleolar table (ops/step_rest.py::nucleolar_table); null: none.
+    // int32 [rows (M, sorted) | start (M + 1) | target (M) | partner (P) |
+    // targets (T)], every other entry a slot k of `rows`: the partners of
+    // rows[k] are partner[start[k] .. start[k + 1]), the partner's slot at
+    // the end that counts the bond's energy, ~slot at the other; target[k]
+    // is its index among the droplet's targets (their slots), or -1.
+    const int* nuc_table;
+    int nuc_rows, nuc_partners, nuc_targets;
+    float nuc_k, nuc_l;                // K_nuc, l_nuc (before the bond scale)
+    float drop_e, drop_inv_d2, drop_cut2, drop_u_cut;   // softwell<6>, cutoff
     // The wall; null semiaxes: none.
     const float* semiaxes;             // (R, 3)
     const float* wall_a;               // (N)
@@ -85,9 +126,15 @@ struct RestArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;                // rows a block, one a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kNucRows = 256;                // nucleolar rows, at most
+constexpr int kNucTable = 1024;              // ints of the nucleolar table, at most
+constexpr int kCopy = 8;                     // the table's loads a lane keeps in flight
+constexpr int kUpdateThreads = 256;
 constexpr int kSums = 5;        // reaction x, y, z; bonded energy; wall energy
 constexpr double kWallEps = 1e-12;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Vec {
     float x, y, z;
@@ -97,7 +144,17 @@ __device__ __forceinline__ Vec load3(const float* p, long long row) {
     return Vec{p[3 * row], p[3 * row + 1], p[3 * row + 2]};
 }
 
+__device__ __forceinline__ void store3(float* p, long long row, Vec v) {
+    p[3 * row] = v.x;
+    p[3 * row + 1] = v.y;
+    p[3 * row + 2] = v.z;
+}
+
+__device__ __forceinline__ Vec plus(Vec a, Vec b) { return Vec{a.x + b.x, a.y + b.y, a.z + b.z}; }
+
 __device__ __forceinline__ Vec minus(Vec a, Vec b) { return Vec{a.x - b.x, a.y - b.y, a.z - b.z}; }
+
+__device__ __forceinline__ Vec scale(float c, Vec d) { return Vec{c * d.x, c * d.y, c * d.z}; }
 
 __device__ __forceinline__ float norm2(Vec d) { return d.x * d.x + d.y * d.y + d.z * d.z; }
 
@@ -109,92 +166,194 @@ __device__ __forceinline__ float semispring(float r2, float k, float l, float& u
     return r > l ? -k * (1.0f - l / r) : 0.0f;
 }
 
-// Fixed-order sum of one value a thread over the block; the result in [0].
-__device__ __forceinline__ void block_sum(float (*s)[kThreads], const float* v) {
-    const int tid = threadIdx.x;
+// Fixed-order sum over the lanes of a warp: lane 0 holds it.
+__device__ __forceinline__ void warp_sum(float* v) {
 #pragma unroll
-    for (int k = 0; k < kSums; ++k) s[k][tid] = v[k];
-    __syncthreads();
-#pragma unroll 1
-    for (int half = kThreads / 2; half > 0; half >>= 1) {
-        if (tid < half) {
+    for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-            for (int k = 0; k < kSums; ++k) s[k][tid] += s[k][tid + half];
-        }
-        __syncthreads();
+        for (int k = 0; k < kSums; ++k) v[k] += __shfl_down_sync(kFullWarp, v[k], o);
+    }
+}
+
+// The nucleolar terms of the row in slot k of the table into f and the bonded
+// energy, from the block's copies in shared memory: the table and the
+// positions of its rows.
+__device__ __forceinline__ void nucleolar_row(const RestArgs& a, int k, const int* table,
+                                              const float* nuc_x, Vec& f, float& energy) {
+    const int* start = table + a.nuc_rows;
+    const int* target = start + a.nuc_rows + 1;
+    const int* partner = target + a.nuc_rows;
+    const int* targets = partner + a.nuc_partners;
+    const Vec p = load3(nuc_x, k);
+    const float k_nuc = a.nuc_k / a.bond_s2;
+    const float l_nuc = a.nuc_l * a.bond_s;
+    for (int e = start[k]; e < start[k + 1]; ++e) {
+        const int code = partner[e];
+        const Vec d = minus(p, load3(nuc_x, code >= 0 ? code : ~code));
+        float u;
+        const float c = semispring(norm2(d), k_nuc, l_nuc, u);
+        f = plus(f, scale(c, d));
+        if (code >= 0) energy += u;
+    }
+    const int own = target[k];
+    if (own < 0) return;
+    // softwell<6>: u = -e / (1 + t), c = -6 e t / (r2 (1 + t)^2), t = (r2/d^2)^3,
+    // with t / r2 = r2^2 / d^6: one division a pair.
+    const float inv_d6 = a.drop_inv_d2 * a.drop_inv_d2 * a.drop_inv_d2;
+    for (int q = 0; q < a.nuc_targets; ++q) {
+        if (q == own) continue;
+        const Vec d = minus(p, load3(nuc_x, targets[q]));
+        const float r2 = norm2(d);
+        if (!(r2 < a.drop_cut2)) continue;
+        const float r4 = r2 * r2;
+        const float inv_one_t = 1.0f / (1.0f + r4 * r2 * inv_d6);
+        const float c = -6.0f * a.drop_e * r4 * inv_d6 * inv_one_t * inv_one_t;
+        f = plus(f, scale(c, d));
+        energy += 0.5f * (-a.drop_e * inv_one_t - a.drop_u_cut);
     }
 }
 
 __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
-    __shared__ float s_sum[kSums][kThreads];
-    __shared__ bool s_last;
+    __shared__ int s_nuc_slot[kNucRows];     // the block's nucleolar rows
+    __shared__ int s_nuc_row[kNucRows];
+    __shared__ int s_nuc_count;
+    __shared__ int s_nuc_table[kNucTable];   // the table, where the block has some
+    __shared__ float s_nuc_x[3 * kNucRows];  // and the positions of all its rows
+    __shared__ float s_warp[kWarps][kSums];
+
     const int r = blockIdx.y;
-    const int i = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int b0 = static_cast<int>(blockIdx.x) * kThreads;
+    const int rows = min(kThreads, a.n - b0);
+    const int i = b0 + tid;
+    const long long base = static_cast<long long>(r) * a.n;
+    const long long row = base + i;
+    const bool live = tid < rows;
+
+    // ---- this row's data and the wall's reciprocals, loaded before the -----
+    // ---- barrier so that their latency overlaps the nucleolar scan ----------
+    Vec p{0.0f, 0.0f, 0.0f}, f{0.0f, 0.0f, 0.0f}, xi{0.0f, 0.0f, 0.0f};
+    if (live) {
+        p = load3(a.x, row);
+        if (a.f_in) f = load3(a.f_in, row);
+        if (a.mobility) xi = load3(a.noise, row);
+    }
+    float ax = 1.0f, ay = 1.0f, az = 1.0f;
+    if (a.semiaxes) {
+        ax = a.semiaxes[3 * r];
+        ay = a.semiaxes[3 * r + 1];
+        az = a.semiaxes[3 * r + 2];
+    }
+    const Vec inv_a2{1.0f / (ax * ax), 1.0f / (ay * ay), 1.0f / (az * az)};
+    const double wix = 1.0 / (static_cast<double>(ax) * ax);
+    const double wiy = 1.0 / (static_cast<double>(ay) * ay);
+    const double wiz = 1.0 / (static_cast<double>(az) * az);
+
+    // ---- the block's nucleolar rows, found by one warp ----------------------
+    if (warp == 0) {
+        int count = 0;
+        if (a.nuc_table) {
+            for (int k0 = 0; k0 < a.nuc_rows; k0 += 32) {
+                const int k = k0 + lane;
+                const int nuc_row = k < a.nuc_rows ? a.nuc_table[k] : -1;
+                const bool mine = nuc_row >= b0 && nuc_row < b0 + rows;
+                const unsigned hit = __ballot_sync(kFullWarp, mine);
+                if (mine) {
+                    const int at = count + __popc(hit & ((1u << lane) - 1u));
+                    s_nuc_slot[at] = k;
+                    s_nuc_row[at] = nuc_row;
+                }
+                count += __popc(hit);
+            }
+            // A block with nucleolar rows copies the table and the positions
+            // of its rows (the wrapper holds them to kNucTable and kNucRows)
+            // to shared memory, kCopy loads a lane in flight at once, so that
+            // a row's terms need no dependent load from device memory.
+            if (count > 0) {
+                const int length = 3 * a.nuc_rows + 1 + a.nuc_partners + a.nuc_targets;
+                for (int v0 = 0; v0 < length; v0 += 32 * kCopy) {
+                    int held[kCopy];
+#pragma unroll
+                    for (int u = 0; u < kCopy; ++u) {
+                        const int v = v0 + 32 * u + lane;
+                        held[u] = v < length ? a.nuc_table[v] : 0;
+                    }
+#pragma unroll
+                    for (int u = 0; u < kCopy; ++u) {
+                        const int v = v0 + 32 * u + lane;
+                        if (v < length) s_nuc_table[v] = held[u];
+                    }
+                }
+                for (int k = lane; k < a.nuc_rows; k += 32) {
+                    store3(s_nuc_x, k, load3(a.x, base + a.nuc_table[k]));
+                }
+            }
+        }
+        if (lane == 0) s_nuc_count = count;
+    }
+    __syncthreads();
+    int nuc_slot = -1;
+    for (int q = 0; q < s_nuc_count; ++q) {
+        if (s_nuc_row[q] == i) nuc_slot = s_nuc_slot[q];
+    }
+
     float sums[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-
-    if (i < a.n) {
-        const long long base = static_cast<long long>(r) * a.n;
-        const long long row = base + i;
-        const Vec p = load3(a.x, row);
-        Vec f = a.f_in ? load3(a.f_in, row) : Vec{0.0f, 0.0f, 0.0f};
-
+    if (live) {
         if (a.bond_mask) {
             // shift_bond_forces: row i holds the bond to i + k; bead i gets
             // f[i] - f[i - k] of f[j] = c_j (x_j - x_{j+k}).
-            Vec own{0.0f, 0.0f, 0.0f}, prev{0.0f, 0.0f, 0.0f};
+            Vec bonded{0.0f, 0.0f, 0.0f};
             float u;
             if (i + 1 < a.n && a.bond_mask[i]) {
                 const Vec d = minus(p, load3(a.x, row + 1));
                 const float c = semispring(norm2(d), a.bond_k[i] / a.bond_s2,
                                            a.bond_l[i] * a.bond_s, u);
-                own = Vec{c * d.x, c * d.y, c * d.z};
+                bonded = scale(c, d);
                 sums[3] += u;
             }
             if (i >= 1 && a.bond_mask[i - 1]) {
                 const Vec d = minus(load3(a.x, row - 1), p);
                 const float c = semispring(norm2(d), a.bond_k[i - 1] / a.bond_s2,
                                            a.bond_l[i - 1] * a.bond_s, u);
-                prev = Vec{c * d.x, c * d.y, c * d.z};
+                bonded = minus(bonded, scale(c, d));
             }
-            Vec bonded = minus(own, prev);
             if (a.loop_mask) {
-                Vec own2{0.0f, 0.0f, 0.0f}, prev2{0.0f, 0.0f, 0.0f};
+                Vec loop{0.0f, 0.0f, 0.0f};
                 if (i + 2 < a.n && a.loop_mask[i]) {
                     const Vec d = minus(p, load3(a.x, row + 2));
                     const float k = a.loop_k[i] / a.bond_s2;
-                    own2 = Vec{-k * d.x, -k * d.y, -k * d.z};
+                    loop = scale(-k, d);
                     sums[3] += 0.5f * k * norm2(d);
                 }
                 if (i >= 2 && a.loop_mask[i - 2]) {
                     const Vec d = minus(load3(a.x, row - 2), p);
                     const float k = a.loop_k[i - 2] / a.bond_s2;
-                    prev2 = Vec{-k * d.x, -k * d.y, -k * d.z};
+                    loop = minus(loop, scale(-k, d));
                 }
-                const Vec loop = minus(own2, prev2);
-                bonded = Vec{bonded.x + loop.x, bonded.y + loop.y, bonded.z + loop.z};
+                bonded = plus(bonded, loop);
             }
-            f = Vec{f.x + bonded.x, f.y + bonded.y, f.z + bonded.z};
+            // One call a row, the rows of a warp together: called inside the
+            // loop over the block's nucleolar rows, a warp's target rows
+            // would take their turns one after the other.
+            if (nuc_slot >= 0) nucleolar_row(a, nuc_slot, s_nuc_table, s_nuc_x, bonded, sums[3]);
+            f = plus(f, bonded);
         }
 
         if (a.semiaxes) {
-            const float ax = a.semiaxes[3 * r], ay = a.semiaxes[3 * r + 1],
-                        az = a.semiaxes[3 * r + 2];
             // d is a small difference of two numbers of the wall's size near
             // the wall, and the steep softcore magnifies its rounding: r2, s2,
             // R and d in float64, the rest in float32 (wall_forces_analytic).
-            const Vec x2{p.x * p.x, p.y * p.y, p.z * p.z};
-            const Vec a2{ax * ax, ay * ay, az * az};
             const double wx = p.x, wy = p.y, wz = p.z;
-            const double wax = ax, way = ay, waz = az;
             const double r2_wide = wx * wx + wy * wy + wz * wz + kWallEps;
-            const double s2_wide = wx * wx / (wax * wax) + wy * wy / (way * way)
-                                 + wz * wz / (waz * waz) + kWallEps;
-            const double radius_wide = sqrt(r2_wide / s2_wide);  // R: the wall along the ray
+            const double s2_wide = wx * wx * wix + wy * wy * wiy + wz * wz * wiz + kWallEps;
             const double root_wide = sqrt(r2_wide);
-            const float d = static_cast<float>(radius_wide - root_wide);   // > 0 inside
+            const double inv_s_wide = rsqrt(s2_wide);
+            const float d = static_cast<float>(root_wide * (inv_s_wide - 1.0));   // > 0 inside
             const float r2 = static_cast<float>(r2_wide);
             const float s2 = static_cast<float>(s2_wide);
-            const float radius = static_cast<float>(radius_wide);
+            const float radius = static_cast<float>(root_wide * inv_s_wide);   // R
             const float root = static_cast<float>(root_wide);
             const float d2 = d * d;
             float c, u;
@@ -216,69 +375,76 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
                 u = 0.5f * a.packing_spring * d2;
             }
             const float g = c * d;                    // -dU/d(d^2) 2 d
-            const float rs2 = radius * s2;
+            const float inv_rs2 = 1.0f / (radius * s2);
             const float inv_root = 1.0f / root;
             const float q = r2 / s2;
-            f.x += g * p.x * ((1.0f - q / a2.x) / rs2 - inv_root);
-            f.y += g * p.y * ((1.0f - q / a2.y) / rs2 - inv_root);
-            f.z += g * p.z * ((1.0f - q / a2.z) / rs2 - inv_root);
-            const float h = g * r2 / (rs2 * s2);
-            sums[0] = h * x2.x / (a2.x * ax);
-            sums[1] = h * x2.y / (a2.y * ay);
-            sums[2] = h * x2.z / (a2.z * az);
+            f.x += g * p.x * ((1.0f - q * inv_a2.x) * inv_rs2 - inv_root);
+            f.y += g * p.y * ((1.0f - q * inv_a2.y) * inv_rs2 - inv_root);
+            f.z += g * p.z * ((1.0f - q * inv_a2.z) * inv_rs2 - inv_root);
+            const float h = g * q * inv_rs2;
+            sums[0] = h * p.x * p.x * inv_a2.x / ax;
+            sums[1] = h * p.y * p.y * inv_a2.y / ay;
+            sums[2] = h * p.z * p.z * inv_a2.z / az;
             sums[4] = u;
         }
 
         if (a.mobility) {
             const float mu = a.mobility[i];
             const float sigma = sqrtf(a.two_t * mu * a.dt);
-            const Vec xi = load3(a.noise, row);
-            a.out[3 * row + 0] = p.x + mu * f.x * a.dt + sigma * xi.x;
-            a.out[3 * row + 1] = p.y + mu * f.y * a.dt + sigma * xi.y;
-            a.out[3 * row + 2] = p.z + mu * f.z * a.dt + sigma * xi.z;
-        } else {
-            a.out[3 * row + 0] = f.x;
-            a.out[3 * row + 1] = f.y;
-            a.out[3 * row + 2] = f.z;
+            f = Vec{p.x + mu * f.x * a.dt + sigma * xi.x, p.y + mu * f.y * a.dt + sigma * xi.y,
+                    p.z + mu * f.z * a.dt + sigma * xi.z};
         }
+        store3(a.out, row, f);
     }
 
+    // ---- per-replica sums: the warps' partials --------------------------------
     if (a.partials == nullptr) return;
-    // ---- per-replica sums: block partials, then the last block's pass -----
-    const int tid = threadIdx.x;
-    const int blocks = gridDim.x;
-    block_sum(s_sum, sums);
-    if (tid == 0) {
-        float* mine = a.partials + (static_cast<long long>(r) * blocks + blockIdx.x) * kSums;
+    warp_sum(sums);
+    if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < kSums; ++k) mine[k] = s_sum[k][0];
-        __threadfence();   // the partials are visible before the ticket is
-        s_last = atomicAdd(&a.tickets[r], 1u) == static_cast<unsigned>(blocks - 1);
+        for (int k = 0; k < kSums; ++k) s_warp[warp][k] = sums[k];
     }
     __syncthreads();
-    if (!s_last) return;
+    if (warp != 0) return;
+
+    // ---- per-replica sums: one warp a block, then the last block's warp ------
+    const int blocks = gridDim.x;
+    float acc[kSums];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] = lane < kWarps ? s_warp[lane][k] : 0.0f;
+    warp_sum(acc);
+    unsigned ticket = 0;
+    if (lane == 0) {
+        float* mine = a.partials + (static_cast<long long>(r) * blocks + blockIdx.x) * kSums;
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) mine[k] = acc[k];
+        __threadfence();   // the partials are visible before the ticket is
+        ticket = atomicAdd(&a.tickets[r], 1u);
+    }
+    ticket = __shfl_sync(kFullWarp, ticket, 0);
+    if (ticket != static_cast<unsigned>(blocks - 1)) return;
     __threadfence();
-    float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int b = tid; b < blocks; b += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+    for (int b = lane; b < blocks; b += 32) {
         const float* theirs = a.partials + (static_cast<long long>(r) * blocks + b) * kSums;
 #pragma unroll
         for (int k = 0; k < kSums; ++k) acc[k] += __ldcg(theirs + k);
     }
-    __syncthreads();   // s_sum is free again
-    block_sum(s_sum, acc);
-    if (tid == 0) {
+    warp_sum(acc);
+    if (lane == 0) {
         if (a.reaction) {
-            for (int k = 0; k < 3; ++k) a.reaction[3 * r + k] = s_sum[k][0];
+            for (int k = 0; k < 3; ++k) a.reaction[3 * r + k] = acc[k];
         }
         if (a.energy) {
-            a.energy[2 * r + 0] = s_sum[3][0];
-            a.energy[2 * r + 1] = s_sum[4][0];
+            a.energy[2 * r + 0] = acc[3];
+            a.energy[2 * r + 1] = acc[4];
         }
         if (a.semiaxes_out) {
             for (int k = 0; k < 3; ++k) {
                 const float axis = a.semiaxes[3 * r + k];
-                a.semiaxes_out[3 * r + k] =
-                    axis + a.ode_rate * (s_sum[k][0] - a.spring[k] * axis);
+                a.semiaxes_out[3 * r + k] = axis + a.ode_rate * (acc[k] - a.spring[k] * axis);
             }
         }
         a.tickets[r] = 0u;   // ready for the next launch
@@ -312,13 +478,13 @@ drift_limit_kernel(const float* __restrict__ forces, const float* __restrict__ m
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kUpdateThreads)
 bd_update_kernel(const float* __restrict__ x, const float* __restrict__ forces,
                  const float* __restrict__ mobility, const float* __restrict__ noise,
                  int n, float dt, float two_t, const float* __restrict__ dt_eff,
                  float* __restrict__ out) {
     const int r = blockIdx.y;
-    const int i = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+    const int i = static_cast<int>(blockIdx.x) * kUpdateThreads + static_cast<int>(threadIdx.x);
     if (i >= n) return;
     const long long row = static_cast<long long>(r) * n + i;
     const float step = dt_eff ? dt_eff[r] : dt;
@@ -338,7 +504,7 @@ extern "C" {
 int step_rest_args_size() { return static_cast<int>(sizeof(RestArgs)); }
 
 // Launches on `stream`, does not synchronise and allocates nothing; `args`
-// is read on the host.  `partials` holds R * ceil(N / 256) * 5 floats.
+// is read on the host.  `partials` holds R * step_rest_blocks(N) * 5 floats.
 // Returns cudaGetLastError().
 int step_rest_launch(const RestArgs* args, void* stream) {
     if (args->n <= 0 || args->replicas <= 0) return 0;
@@ -364,8 +530,8 @@ int bd_update_launch(const void* x, const void* forces, const void* mobility,
         const int status = static_cast<int>(cudaGetLastError());
         if (status != 0) return status;
     }
-    const dim3 grid((n + kThreads - 1) / kThreads, replicas);
-    bd_update_kernel<<<grid, kThreads, 0, s>>>(
+    const dim3 grid((n + kUpdateThreads - 1) / kUpdateThreads, replicas);
+    bd_update_kernel<<<grid, kUpdateThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(forces),
         static_cast<const float*>(mobility), static_cast<const float*>(noise), n, dt, two_t,
         static_cast<const float*>(dt_eff), static_cast<float*>(out));

@@ -13,11 +13,11 @@ the hand-written CUDA kernel of ``ops/pair_kernels.py`` over sorted cell
 ranges.  That layout has no per-cell capacity, so the capacity probing,
 overflow retries and engine switches of the JAX ``run_interphase`` have no
 counterpart here.  On the card the rest of a step is hand-written too: the
-chain and loop bonds, the wall and (in G1) the Brownian update with the wall
-ODE in one launch of ``csrc/step_rest.cu``, the relaxation's update in
-another, and the tick in ``csrc/contact_tick.cu`` (its event buffer's size
-kept on the model).  The nucleolar bonds and droplet, 20 particles, stay
-plain torch.  On the CPU every one of these runs its plain version.
+chain and loop bonds, the nucleolar bonds and droplet, the wall and (in G1)
+the Brownian update with the wall ODE in one launch of
+``csrc/step_rest.cu``, the relaxation's update in another, and the tick in
+``csrc/contact_tick.cu`` (its event buffer's size kept on the model).  On
+the CPU every one of these runs its plain version.
 
 Known deliberate cadence deviation (documented, within stochastic tolerance):
 the reference samples the frame context *before* the per-step scale/wall
@@ -40,11 +40,7 @@ from .. import resolve_device
 from ..config import InterphaseConfig, SimulationConfig
 from ..store import InterphaseContext, StageDesign
 from ..ops import potentials as pot
-from ..ops.bonded import (
-    chain_bond_pairs,
-    loop_bond_pairs,
-    pair_bond_forces,
-)
+from ..ops.bonded import chain_bond_pairs, loop_bond_pairs
 from ..ops.contact import (
     EventCapacity,
     contact_events,
@@ -57,7 +53,7 @@ from ..ops import step_rest
 from ..ops.integrator import BDParams, bd_update, standard_normal
 from ..ops.neighbor import pairwise_forces_dense
 from ..ops.pair_kernels import ab_pair_forces, build_cell_layout
-from ..ops.step_rest import BondRows, UpdateRows, WallRows
+from ..ops.step_rest import BondRows, NucleolarRows, UpdateRows, WallRows
 from ..ops.wall import wall_forces
 from ..utils.logging import progress_line
 
@@ -202,6 +198,10 @@ class InterphaseModel(nn.Module):
         self.use_droplet = (
             config.nucleolus_droplet_energy != 0 and self.nuc_targets.shape[0] > 1
         )
+        # The nucleolar bonds and droplet as the rest kernel reads them.
+        self.register_buffer("nuc_table", step_rest.nucleolar_table(
+            self.nuc_bonds, self.nuc_targets if self.use_droplet else self.nuc_targets[:0]),
+            persistent=False)
         # Derived per-bead wall weights (a_i + wall_a)/2, (b_i + wall_b)/2.
         self.register_buffer(
             "wall_a", 0.5 * (self.af + config.wall_ab_factor.a), persistent=False
@@ -288,70 +288,35 @@ class InterphaseModel(nn.Module):
         R replicas) on the model's grid."""
         return build_cell_layout(positions, self.af, self.bf, self.bound, self.cell)
 
+    def nucleolar_rows(self) -> Optional[NucleolarRows]:
+        """The nucleolar bonds and droplet, or None when the design has
+        neither."""
+        if not self.nuc_bonds.shape[0] and not self.use_droplet:
+            return None
+        c = self.config
+        return NucleolarRows(
+            self.nuc_bonds, self.nuc_targets if self.use_droplet else self.nuc_targets[:0],
+            c.nucleolus_bond_spring, c.nucleolus_bond_length, c.nucleolus_droplet_energy,
+            c.nucleolus_droplet_decay, c.nucleolus_droplet_cutoff, self.nuc_table,
+        )
+
     def bond_rows(self, bond_scale) -> BondRows:
-        """The chain bonds and loops at a bond scale, as the rest kernel
-        takes them."""
+        """Every topology-indexed term at a bond scale, as the rest kernel
+        takes them: chain bonds, loops, nucleolar bonds and droplet."""
         return BondRows(
             self.bond_mask, self.bond_k_row, self.bond_l_row,
             self.loop_mask if self.use_loops else None,
-            self.loop_k_row if self.use_loops else None, bond_scale,
+            self.loop_k_row if self.use_loops else None, bond_scale, self.nucleolar_rows(),
         )
 
-    def nucleolar_forces(self, positions, bond_scale, forces, energy, with_energy=False):
-        """``forces`` plus the nucleolar bonds and droplet (plain torch on
-        every device: 20 particles), and ``energy`` plus theirs when
-        ``with_energy`` (else ``energy`` comes back as it was)."""
-        c = self.config
-        s2 = bond_scale * bond_scale
-        if self.nuc_bonds.shape[0]:
-            k_nuc = c.nucleolus_bond_spring / s2
-            l_nuc = c.nucleolus_bond_length * bond_scale
-            f, e = pair_bond_forces(
-                positions,
-                self.nuc_bonds,
-                (lambda r2: pot.semispring_energy(r2, k_nuc, l_nuc)) if with_energy else None,
-                lambda r2: pot.semispring_force_coeff(r2, k_nuc, l_nuc),
-            )
-            forces = forces + f
-            if with_energy:
-                energy = energy + e
-
-        if self.use_droplet:
-            cutoff = c.nucleolus_droplet_cutoff
-
-            def drop_u(r2, i, j):
-                return pot.cutoff_shift(
-                    lambda q: pot.softwell_energy(
-                        q, c.nucleolus_droplet_energy, c.nucleolus_droplet_decay, 6
-                    ),
-                    r2,
-                    cutoff,
-                )
-
-            def drop_c(r2, i, j):
-                coeff = pot.softwell_force_coeff(
-                    r2, c.nucleolus_droplet_energy, c.nucleolus_droplet_decay, 6
-                )
-                return torch.where(r2 < cutoff * cutoff, coeff, torch.zeros_like(coeff))
-
-            f, e = pairwise_forces_dense(
-                positions, drop_c, drop_u if with_energy else None,
-                targets=self.nuc_targets,
-            )
-            forces = forces + f
-            if with_energy:
-                energy = energy + e
-
-        return forces, energy
-
     def bonded_forces(self, positions, bond_scale, with_energy=False):
-        """All topology-indexed terms: chain bonds, loops (the rest kernel on
-        the card), nucleolar bonds, nucleolar droplet.  Cheap O(N).  Returns
-        (forces, energy); the energy is 0.0 unless ``with_energy``."""
-        chain = step_rest.rest(positions, bonds=self.bond_rows(bond_scale),
-                               with_energy=with_energy)
-        return self.nucleolar_forces(positions, bond_scale, chain.out, chain.bonded_energy,
-                                     with_energy)
+        """All topology-indexed terms: chain bonds, loops, nucleolar bonds,
+        nucleolar droplet (one launch of the rest kernel on the card).
+        Cheap O(N).  Returns (forces, energy); the energy is 0.0 unless
+        ``with_energy``."""
+        bonded = step_rest.rest(positions, bonds=self.bond_rows(bond_scale),
+                                with_energy=with_energy)
+        return bonded.out, bonded.bonded_energy
 
     def pair_kernel_params(self, core_scale):
         """[e_a, 1/d_a^2, e_b, 1/d_b^2] of the pair kernel at a core scale."""
@@ -418,7 +383,6 @@ class InterphaseModel(nn.Module):
                          with_energy=False):
         """Full force field.  Returns (forces, reaction, energy)."""
         forces, energy = self.pair_forces_full(x, core_scale, with_energy)
-        forces, energy = self.nucleolar_forces(x, bond_scale, forces, energy, with_energy)
         rest = step_rest.rest(x, forces, self.bond_rows(bond_scale),
                               self.wall_rows(semiaxes, core_scale), with_energy=with_energy)
         if with_energy:
@@ -445,8 +409,9 @@ class InterphaseModel(nn.Module):
     def _bd_step4(self, carry, step: int, noise=None):
         """Forces at lagged scales, BD update, wall ODE — everything except
         contact accounting (simulation_driver_interphase.cpp:16-63,79-90).
-        On the card the bonds, the wall, the update and the wall ODE are one
-        launch of the rest kernel."""
+        On the card everything but the pair force (the bonded terms, the
+        wall, the update and the wall ODE) is one launch of the rest
+        kernel."""
         x, generator, semiaxes = carry
         c = self.config
         dt = c.timestep
@@ -455,7 +420,6 @@ class InterphaseModel(nn.Module):
         core_scale, bond_scale = self.scales((step - 1) * dt)
 
         forces, _ = self.pair_forces_full(x, core_scale)
-        forces, _ = self.nucleolar_forces(x, bond_scale, forces, 0.0)
         if noise is None:
             noise = standard_normal(x, generator)
         # Wall ODE: overdamped motion of the semiaxes under chromatin pressure

@@ -12,7 +12,7 @@ output window and are dumped as COO rows sorted by the packed key
 
 The search walks the same cell layout as the pair-force kernel.  On the
 card it is the hand-written kernel of ``csrc/contact_tick.cu``: every pair
-found takes a row of a fixed event buffer through one atomic counter, the
+found takes a row of a fixed event buffer through one counter, the
 wrapper reads the counter (the tick's one host synchronisation) and, when the
 buffer was too small, grows it and searches again (:func:`events_with_capacity`;
 the buffer's size lives with the caller, :class:`EventCapacity`).  Its plain
@@ -98,9 +98,9 @@ def events_with_capacity(search, capacity: EventCapacity):
         capacity.grow(count)
 
 
-def _tick_entry_point():
+def _tick_entry_point(name: str):
     lib = _build.load_library("contact_tick")
-    launch = lib.contact_tick_launch
+    launch = getattr(lib, name)
     if not launch.argtypes:
         launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_uint] + [ctypes.c_void_p] * 3)
@@ -108,29 +108,35 @@ def _tick_entry_point():
     return launch
 
 
-def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffer, count):
+def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffer, count,
+                 first_version: bool = False):
     """One launch of the tick kernel into ``buffer`` (rows, 3) int32; adds
     the pairs found to ``count`` (1,) int32, which must hold 0.  Allocates
-    nothing and does not synchronise."""
+    nothing and does not synchronise.  ``first_version`` launches the kernel
+    this one replaced (one thread a row), kept as a timing yardstick and not
+    counted."""
     device = layout.xyz.device
+    entry = "contact_tick_thread_per_row_launch" if first_version else "contact_tick_launch"
     with torch.cuda.device(device):
-        status = _tick_entry_point()(
+        status = _tick_entry_point(entry)(
             layout.xyz.data_ptr(), layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
             layout.order.data_ptr(), begin, end, *layout.shape, cutoff2, buffer.shape[0],
             buffer.data_ptr(), count.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(f"contact tick kernel launch failed: CUDA error {status}")
-    contact_events.launches += 1
+    if not first_version:
+        contact_events.launches += 1
 
 
-def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int):
+def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int,
+                 first_version: bool = False):
     """:func:`_tick_launch` into a fresh buffer of ``rows`` rows; returns the
     buffer and the count of pairs found (a host synchronisation)."""
     device = layout.xyz.device
     count = torch.zeros(1, dtype=torch.int32, device=device)
     buffer = torch.empty((rows, 3), dtype=torch.int32, device=device)
-    _tick_launch(layout, cutoff2, begin, end, buffer, count)
+    _tick_launch(layout, cutoff2, begin, end, buffer, count, first_version)
     return buffer, int(count.item()) & 0xFFFFFFFF
 
 
@@ -152,6 +158,14 @@ def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
     """
     if layout.xyz.device.type != "cuda":
         return contact_events_reference(layout, cutoff, begin, end)
+    return _contact_events_launched(layout, cutoff, begin, end, capacity)
+
+
+def _contact_events_launched(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
+                             capacity: Optional[EventCapacity] = None,
+                             first_version: bool = False) -> torch.Tensor:
+    """:func:`contact_events` on a CUDA layout, by the kernel or, with
+    ``first_version``, by the kernel it replaced (the timing yardstick)."""
     _check_cutoff(layout, cutoff)
     _check_layout(layout)
     capacity = capacity if capacity is not None else EventCapacity()
@@ -161,7 +175,7 @@ def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
     end = layout.n if end is None else min(int(end), layout.n)
     cutoff2 = float(cutoff) * float(cutoff)
     return events_with_capacity(
-        lambda rows: _tick_search(layout, cutoff2, begin, end, rows), capacity)
+        lambda rows: _tick_search(layout, cutoff2, begin, end, rows, first_version), capacity)
 
 
 # Kernel launches made by this process (reruns after an overflow included).

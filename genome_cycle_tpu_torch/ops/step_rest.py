@@ -1,12 +1,14 @@
 """Wrappers of ``csrc/step_rest.cu``: the O(N) rest of a step on the card.
 
-:func:`rest` is what a step calls: ``forces`` plus the chain and loop bonds
-and the wall with its per-axis reaction, or, given an :class:`UpdateRows`,
-the Brownian update of the G1 step with the wall ODE as well.  A CUDA tensor
-takes one launch of the rest kernel (:func:`launch_rest`) or raises; a CPU
-tensor takes the plain composition :func:`rest_reference`
-(``ops/bonded.py::shift_bond_forces``, ``ops/wall.py::wall_forces_reference``
-(autograd), ``ops/integrator.py::bd_update_reference``).
+:func:`rest` is what a step calls: ``forces`` plus the chain and loop bonds,
+the nucleolar bonds and droplet, and the wall with its per-axis reaction, or,
+given an :class:`UpdateRows`, the Brownian update of the G1 step with the
+wall ODE as well.  A CUDA tensor takes one launch of the rest kernel
+(:func:`launch_rest`) or raises; a CPU tensor takes the plain composition
+:func:`rest_reference` (``ops/bonded.py::shift_bond_forces`` and
+``pair_bond_forces``, ``ops/neighbor.py::pairwise_forces_dense`` for the
+droplet, ``ops/wall.py::wall_forces_reference`` (autograd),
+``ops/integrator.py::bd_update_reference``).
 
 :func:`launch_update` is the update alone, with the relaxation's
 displacement limit computed on the device; it sits behind
@@ -21,20 +23,44 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build, integrator, potentials
 from . import wall as wall_ops
-from .bonded import shift_bond_forces
+from .bonded import pair_bond_forces, shift_bond_forces
+from .neighbor import pairwise_forces_dense
 from .pair_kernels import _check_tensor
 
 _SUMS = 5   # reaction x, y, z; bonded energy; wall energy (the source's kSums)
+_NUC_ROWS = 256      # the source's kNucRows and kNucTable: what a block stages
+_NUC_TABLE = 1024
+_DROPLET_EXPONENT = 6   # softwell<6>, as the reference's droplet
+
+
+class NucleolarRows(NamedTuple):
+    """The nucleolar bonds and droplet: NOR semisprings between the bonds'
+    two beads (K / s^2 and l * s at the bond scale s of the :class:`BondRows`
+    they ride with) and the droplet's softwell<6> attraction among
+    ``targets`` (force cut at ``droplet_cutoff``, energy shifted to zero
+    there; no targets: no droplet).  ``table`` holds both as the rest kernel
+    reads them (:func:`nucleolar_table`), on the positions' device."""
+
+    bonds: torch.Tensor       # (B, 2) int64
+    targets: torch.Tensor     # (T,) int64
+    spring: float
+    length: float
+    droplet_energy: float
+    droplet_decay: float
+    droplet_cutoff: float
+    table: torch.Tensor       # int32, see nucleolar_table
 
 
 class BondRows(NamedTuple):
     """Row-aligned chain bonds (i, i + 1) and loops (i, i + 2), as
     ``shift_bond_forces`` takes them: (N,) masks and per-row parameters; at
-    bond scale s the springs are K / s^2 and the chain lengths l * s."""
+    bond scale s the springs are K / s^2 and the chain lengths l * s.  The
+    nucleolar bonds and droplet, when there are any, ride along."""
 
     mask: torch.Tensor                   # (N,) bool
     spring: torch.Tensor                 # (N,) f32
@@ -42,6 +68,7 @@ class BondRows(NamedTuple):
     loop_mask: Optional[torch.Tensor]    # (N,) bool, or None: no loops
     loop_spring: Optional[torch.Tensor]  # (N,) f32
     scale: float
+    nucleolar: Optional[NucleolarRows] = None
 
 
 class WallRows(NamedTuple):
@@ -85,6 +112,11 @@ class _RestArgs(ctypes.Structure):
         ("bond_l", ctypes.c_void_p), ("loop_mask", ctypes.c_void_p),
         ("loop_k", ctypes.c_void_p),
         ("bond_s2", ctypes.c_float), ("bond_s", ctypes.c_float),
+        ("nuc_table", ctypes.c_void_p), ("nuc_rows", ctypes.c_int),
+        ("nuc_partners", ctypes.c_int), ("nuc_targets", ctypes.c_int),
+        ("nuc_k", ctypes.c_float), ("nuc_l", ctypes.c_float),
+        ("drop_e", ctypes.c_float), ("drop_inv_d2", ctypes.c_float),
+        ("drop_cut2", ctypes.c_float), ("drop_u_cut", ctypes.c_float),
         ("semiaxes", ctypes.c_void_p), ("wall_a", ctypes.c_void_p),
         ("wall_b", ctypes.c_void_p),
         ("e_a", ctypes.c_float), ("inv_da2", ctypes.c_float), ("e_b", ctypes.c_float),
@@ -134,6 +166,57 @@ def _rows(name, tensor, dtype, n, device):
     return tensor.data_ptr()
 
 
+def nucleolar_table(bonds, targets) -> torch.Tensor:
+    """The rest kernel's nucleolar table, int32 on the bonds' device:
+    [rows (M) | start (M + 1) | target (M) | partner (P) | targets (T)].
+    ``rows`` are the M beads with a nucleolar term (bond ends and droplet
+    targets), sorted, and every other entry names a bead by its slot k in
+    ``rows``: the partners of ``rows[k]`` are
+    ``partner[start[k]:start[k + 1]]``, the slot of the bond's second bead at
+    its first (which counts the bond's energy) and ~slot of the first at the
+    second; ``targets`` are the droplet's targets and ``target[k]`` is the
+    row's index among them, or -1."""
+    pairs = bonds.detach().cpu().numpy().astype(np.int64).reshape(-1, 2)
+    drop = targets.detach().cpu().numpy().astype(np.int64).reshape(-1)
+    rows = np.unique(np.concatenate([pairs.reshape(-1), drop]))
+    slot = {int(row): k for k, row in enumerate(rows)}
+    partners = [[] for _ in rows]
+    for i, j in pairs.tolist():
+        partners[slot[i]].append(slot[j])
+        partners[slot[j]].append(~slot[i])
+    start = np.cumsum([0] + [len(p) for p in partners])
+    target = np.full(len(rows), -1, np.int64)
+    target[[slot[int(v)] for v in drop]] = np.arange(len(drop))
+    flat = np.concatenate([rows, start, target,
+                           np.asarray([v for p in partners for v in p], np.int64),
+                           np.asarray([slot[int(v)] for v in drop], np.int64)])
+    return torch.as_tensor(flat.astype(np.int32), device=bonds.device)
+
+
+def _droplet_energy_at(r2, nucleolar: NucleolarRows):
+    """softwell<6> energy of the droplet at r2 (a float), not shifted."""
+    t = (r2 / (nucleolar.droplet_decay * nucleolar.droplet_decay)) ** (_DROPLET_EXPONENT // 2)
+    return -nucleolar.droplet_energy / (1.0 + t)
+
+
+def _nucleolar_args(args, nucleolar: NucleolarRows, device):
+    partners, targets = 2 * nucleolar.bonds.shape[0], nucleolar.targets.shape[0]
+    rows = (nucleolar.table.numel() - 1 - partners - targets) // 3
+    if rows > _NUC_ROWS or nucleolar.table.numel() > _NUC_TABLE:
+        raise ValueError(f"{rows} nucleolar rows, a table of {nucleolar.table.numel()}: the "
+                         f"rest kernel takes at most {_NUC_ROWS} and {_NUC_TABLE}")
+    _check_tensor("nucleolar table", nucleolar.table, torch.int32,
+                  (3 * rows + 1 + partners + targets,), device, 4)
+    args.nuc_table = nucleolar.table.data_ptr()
+    args.nuc_rows, args.nuc_partners, args.nuc_targets = rows, partners, targets
+    args.nuc_k, args.nuc_l = float(nucleolar.spring), float(nucleolar.length)
+    cutoff2 = float(nucleolar.droplet_cutoff) ** 2
+    args.drop_e = float(nucleolar.droplet_energy)
+    args.drop_inv_d2 = 1.0 / float(nucleolar.droplet_decay) ** 2
+    args.drop_cut2 = cutoff2
+    args.drop_u_cut = _droplet_energy_at(cutoff2, nucleolar)
+
+
 def _stacked(positions):
     """(R, N) of positions (N, 3) or (R, N, 3)."""
     if positions.dim() == 2:
@@ -149,12 +232,12 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
     """One launch of ``step_rest_kernel`` on CUDA float32 tensors.
 
     ``forces`` (of the positions' shape, or None for zeros) plus the chain
-    and loop bonds and the wall.  Without ``update`` the result's ``out``
+    and loop bonds, the nucleolar bonds and droplet, and the wall.  Without ``update`` the result's ``out``
     holds the forces (``forces`` itself with ``in_place``); with it, the new
     positions x + mu F dt + sqrt(2 mu kT dt) xi and the semiaxes moved by
     the wall ODE.  The reaction is per replica: (3,) for positions (N, 3),
-    (R, 3) for (R, N, 3).  With ``with_energy`` the bonded and the wall
-    energies, each summed over all beads.
+    (R, 3) for (R, N, 3).  With ``with_energy`` the bonded (nucleolar terms
+    included) and the wall energies, each summed over all beads.
 
     The reaction, the energies and the new semiaxes are written by the
     launch's last block, found by a ticket counter kept for the current
@@ -186,6 +269,8 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
             args.loop_mask = _rows("loop mask", bonds.loop_mask, torch.bool, n, device)
             args.loop_k = _rows("loop springs", bonds.loop_spring, torch.float32, n, device)
         args.bond_s2, args.bond_s = s * s, s
+        if bonds.nucleolar is not None:
+            _nucleolar_args(args, bonds.nucleolar, device)
     reaction = semiaxes_out = None
     # No bead launches no block: the sums are zero (a rank may own no bead).
     alloc = torch.empty if n else torch.zeros
@@ -276,18 +361,52 @@ def chain_bonds_reference(positions, bonds: BondRows):
     return forces, energy
 
 
+def nucleolar_reference(positions, nucleolar: NucleolarRows, scale: float):
+    """Plain nucleolar bonds and droplet: (forces, energy), the NOR
+    semisprings K / s^2, l * s by ``pair_bond_forces`` and the droplet by
+    ``pairwise_forces_dense`` over its targets, as the JAX package's
+    ``bonded_forces`` forms them."""
+    s2 = scale * scale
+    k_nuc = nucleolar.spring / s2
+    l_nuc = nucleolar.length * scale
+    forces, energy = pair_bond_forces(
+        positions, nucleolar.bonds,
+        lambda r2: potentials.semispring_energy(r2, k_nuc, l_nuc),
+        lambda r2: potentials.semispring_force_coeff(r2, k_nuc, l_nuc),
+    )
+    if nucleolar.targets.shape[0]:
+        e, decay, cutoff = (nucleolar.droplet_energy, nucleolar.droplet_decay,
+                            nucleolar.droplet_cutoff)
+
+        def drop_u(r2, i, j):
+            return potentials.cutoff_shift(
+                lambda q: potentials.softwell_energy(q, e, decay, _DROPLET_EXPONENT), r2, cutoff)
+
+        def drop_c(r2, i, j):
+            coeff = potentials.softwell_force_coeff(r2, e, decay, _DROPLET_EXPONENT)
+            return torch.where(r2 < cutoff * cutoff, coeff, torch.zeros_like(coeff))
+
+        f, u = pairwise_forces_dense(positions, drop_c, drop_u, targets=nucleolar.targets)
+        forces, energy = forces + f, energy + u
+    return forces, energy
+
+
 def rest_reference(positions, forces=None, bonds: Optional[BondRows] = None,
                    wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
                    with_energy: bool = False) -> RestResult:
     """Plain version of :func:`rest` (and so of the rest kernel), in the
-    positions' dtype or wider: the bonds by :func:`chain_bonds_reference`,
-    the wall by autograd, the update by ``bd_update_reference`` on the
-    handed-in noise, then the wall ODE a + rate (reaction - spring a)."""
+    positions' dtype or wider: the bonds by :func:`chain_bonds_reference`
+    and :func:`nucleolar_reference`, the wall by autograd, the update by
+    ``bd_update_reference`` on the handed-in noise, then the wall ODE
+    a + rate (reaction - spring a)."""
     out = torch.zeros_like(positions) if forces is None else forces
     bonded_energy = wall_energy = 0.0
     reaction = semiaxes = None
     if bonds is not None:
         f, bonded_energy = chain_bonds_reference(positions, bonds)
+        if bonds.nucleolar is not None:
+            f_nuc, e_nuc = nucleolar_reference(positions, bonds.nucleolar, bonds.scale)
+            f, bonded_energy = f + f_nuc, bonded_energy + e_nuc
         out = out + f
     if wall is not None:
         f, reaction, wall_energy = wall_ops.wall_forces_reference(
@@ -309,8 +428,9 @@ def rest_reference(positions, forces=None, bonds: Optional[BondRows] = None,
 def rest(positions, forces=None, bonds: Optional[BondRows] = None,
          wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
          with_energy: bool = False) -> RestResult:
-    """``forces`` (None for zeros) plus the chain bonds and loops and the
-    wall, each left out when None; with ``update``, the G1 step's new
+    """``forces`` (None for zeros) plus the chain bonds and loops (and the
+    nucleolar terms that ride with them) and the wall, each left out when
+    None; with ``update``, the G1 step's new
     positions and semiaxes instead of the forces.
 
     On a CUDA tensor one launch of the rest kernel, or the call raises;

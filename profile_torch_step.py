@@ -17,9 +17,10 @@ first version are timed apart.  ``torch.profiler`` windows over whole G1
 steps, relaxation steps and ticks give the device's busy share, the device
 kernels started a step and the device time by kernel name.  The steps of the three mitotic phases (576
 coarse beads, 1,152 with sisters) are timed and profiled the same way, for
-their launches a step, and so is the G1 step of an ensemble of R = 1, 2, 4 and
-8 replicas of the nucleus in lock-step (one launch of the pair kernel a step
-for all of them).  Prints one JSON object and writes it to
+their launches a step, with the update kernel on the card at their sizes (as
+they launch it, and with the relaxation's displacement limit); and so is the
+G1 step of an ensemble of R = 1, 2, 4 and 8 replicas of the nucleus in
+lock-step (one launch of the pair kernel a step for all of them).  Prints one JSON object and writes it to
 ``DIR/profile_torch_step.json`` (default ``build/profile``).  Needs a CUDA card.
 """
 
@@ -83,6 +84,34 @@ def profile_window(step_fn, steps, step_ms):
     }
 
 
+# Launches a kernel is timed over by CUDA events: few enough that the host,
+# at some tens of microseconds a launch, stays queued ahead of the card.
+DEVICE_REPEATS = 20
+
+
+def update_kernel_times(x, mobility, m, spacestep):
+    """Milliseconds on the card (CUDA events, the host queued ahead) of the
+    update kernel at positions ``x`` as a mitotic step launches it, and
+    with the relaxation's displacement limit, beside its bound (position,
+    force and noise read, position written, the mobility: 52 bytes a bead
+    at 3.35 TB/s)."""
+    import chip_smoke
+    from genome_cycle_tpu_torch.ops import step_rest
+
+    forces = torch.randn_like(x) * 100.0
+    noise = torch.randn_like(x)
+    times = {}
+    for label, limit in (("no_limit_ms", None), ("with_limit_ms", spacestep)):
+        times[label] = chip_smoke.time_ms(lambda: step_rest.launch_update(
+            x, forces, mobility, noise, m.temperature, m.timestep, limit), DEVICE_REPEATS)
+    n = x.shape[-2]
+    times["bound_ms"] = ((chip_smoke.STEP_BYTES_PER_REPLICA_BEAD
+                          + chip_smoke.UPDATE_SHARED_BYTES_PER_BEAD) * n
+                         / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    times["beads"] = n
+    return times
+
+
 def mitotic_steps(store, config, x_interphase, device, repeats):
     """Host-clock milliseconds, launches and busy share of one step of the
     anaphase, the telophase and the prometaphase, each on the structure its
@@ -114,6 +143,9 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
 
         step_ms = host_ms(one_step, repeats)
         window = profile_window(one_step, 50, step_ms)
+        update = update_kernel_times(
+            carry[0], (pro if stage == "prometaphase" else ana).mobility,
+            config.mitotic_phase, config.interphase.relaxation_spacestep)
         # Same start, same seed, twice: `index_add_` sums bonds and triples
         # that share a bead in an order of its own choosing.
         twice = []
@@ -126,6 +158,7 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
         result[stage] = {
             "beads": int(carry[0].shape[0]), "step_ms": step_ms,
             "steps_per_second": 1e3 / step_ms, **window,
+            "update_kernel": update,
             "two_runs_bitwise_equal": bool(torch.equal(*twice)),
             "two_runs_max_abs_difference": float((twice[0] - twice[1]).abs().max()),
             "two_runs_steps": repeats,
@@ -228,21 +261,25 @@ def main():
     n = args.steps
     noise = standard_normal(x, generator)
     fused = model.update_rows(noise)
-    # The layers of a G1 step as it runs: layout, pair kernel, nucleolar
-    # terms (plain torch), the noise, and one launch of the rest kernel for
-    # bonds + wall + update + wall ODE.  Beside them, not part of a G1 step:
-    # the rest kernel's bonds alone and wall alone (as bonded_forces and
+    # The layers of a G1 step as it runs: layout, pair kernel, the noise,
+    # and one launch of the rest kernel for bonds (nucleolar rows included)
+    # + wall + update + wall ODE.  Beside them, not part of a G1 step: the
+    # rest kernel's bonds alone and wall alone (as bonded_forces and
     # wall_forces launch it for the sharded drivers and the energy pass),
     # the update kernel (the relaxation's, with its displacement limit) and
     # the pair kernel's first version.
+    bonds, wall = model.bond_rows(bond), model.wall_rows(semiaxes, core)
     layers = {
         "layout_sort": host_ms(lambda: model.cell_layout(x), n),
         "pair_kernel": host_ms(lambda: pk.ab_pair_forces(layout, kparams), n),
-        "nucleolar": host_ms(lambda: model.nucleolar_forces(x, bond, forces, None), n),
         "noise": host_ms(lambda: standard_normal(x, generator), n),
-        "rest_kernel_g1_launch": host_ms(lambda: step_rest.rest(
-            x, forces, model.bond_rows(bond), model.wall_rows(semiaxes, core), fused), n),
+        "rest_kernel_g1_launch": host_ms(
+            lambda: step_rest.rest(x, forces, bonds, wall, fused), n),
     }
+    # The rest kernel's G1 launch on the card alone (CUDA events, the host
+    # queued ahead).
+    rest_device_ms = chip_smoke.time_ms(
+        lambda: step_rest.launch_rest(x, forces, bonds, wall, fused), DEVICE_REPEATS)
     apart = {
         "pair_kernel_first_version": host_ms(
             lambda: pk._ab_pair_forces_thread_per_bead(layout, kparams), n),
@@ -300,6 +337,7 @@ def main():
         "events_per_tick": int(events.shape[0]),
         "layers_ms_per_step": layers,
         "layers_sum_ms": sum(layers.values()),
+        "rest_kernel_g1_launch_device_ms": rest_device_ms,
         "not_in_a_g1_step_ms": apart,
         "whole_step_ms": step_ms,
         "relaxation_step_ms": relax_ms,

@@ -1,6 +1,7 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
-on a layout of several replicas; the step kernels (the contact tick, the rest
-kernel with its wall reaction, the update) against theirs; an ensemble run on
+on a layout of several replicas; the step kernels (the contact tick and its
+first version, the rest kernel with its wall reaction and nucleolar rows, the
+update) against theirs; an ensemble run on
 the card; the
 interphase step through the kernel against the C++ surrogate; and the
 analysis chain's device numerics on the card against the host.
@@ -450,6 +451,22 @@ def test_contact_tick_kernel_matches_plain_version(cuda_device):
 
 
 @pytest.mark.gpu
+def test_contact_tick_kernel_matches_its_first_version(cuda_device):
+    """The tick kernel and the one it replaced (one thread a row, kept as a
+    timing yardstick) list the same pairs on every control input; the first
+    version's launches are not counted."""
+    from genome_cycle_tpu_torch.ops import contact
+
+    for name, layout, begin, end in _tick_layouts(cuda_device):
+        got = contact.contact_events(layout, 0.24, begin, end)
+        before = contact.contact_events.launches
+        first = contact._contact_events_launched(layout, 0.24, begin, end, first_version=True)
+        torch.cuda.synchronize()
+        assert contact.contact_events.launches == before, name
+        assert _pair_set(got) == _pair_set(first), name
+
+
+@pytest.mark.gpu
 def test_contact_tick_overflow_reruns_and_two_launches_merge_equal(cuda_device):
     """A capacity too small: the tick grows it and searches again, and lists
     the plain version's pairs.  Two launches list rows in their own orders;
@@ -567,6 +584,59 @@ def test_rest_kernel_matches_plain_version(cuda_device, replicas):
     assert not only_wall.out[..., 0, :].any()      # the bead at the origin
     # The bead on the wall: eps leaves it 1e-12 from the wall in float64.
     assert float(only_wall.out[..., 1, :].abs().max()) < 1e-6
+
+
+def _with_nucleolus(x, bonds, device):
+    """``bonds`` with nucleolar rows live on the beads of ``_rest_inputs``:
+    NOR beads 5 and 200 bonded to two nucleolar particles each (290 to 293,
+    stretched), and a droplet over those four and 294 to 296, all within its
+    cutoff of each other; the positions moved to match."""
+    from genome_cycle_tpu_torch.ops.step_rest import NucleolarRows, nucleolar_table
+
+    rng = np.random.default_rng(41)
+    x = x.clone()
+    pairs = torch.tensor([[5, 290], [5, 291], [200, 292], [200, 293]], device=device)
+    targets = torch.arange(290, 297, device=device)
+    centre = x[..., 5:6, :]
+    x[..., 290:297, :] = centre + torch.as_tensor(
+        rng.uniform(-0.12, 0.12, tuple(x[..., 290:297, :].shape)), dtype=x.dtype, device=device)
+    nucleolar = NucleolarRows(pairs, targets, 10.0, 0.05, 0.3, 0.2, 0.4,
+                              nucleolar_table(pairs, targets))
+    return x, bonds._replace(nucleolar=nucleolar)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [None, 4])
+def test_rest_kernel_with_nucleolar_rows_matches_plain_version(cuda_device, replicas):
+    """NOR bonds and the droplet in the kernel's own rows, in place and fused
+    with the update, against the plain version in float64; two launches the
+    same bits; one launch a call."""
+    from genome_cycle_tpu_torch.ops import integrator, step_rest
+
+    x, forces, bonds, wall = _rest_inputs(cuda_device, replicas, seed=34)
+    x, bonds = _with_nucleolus(x, bonds, cuda_device)
+    f_p, r_p, eb_p, ew_p = _rest_plain(x, forces, bonds, wall)
+    plain_bonds = _rest_plain(x, forces, bonds._replace(nucleolar=None), wall)[0]
+    before = step_rest.launch_rest.launches
+    got = [step_rest.rest(x, forces.clone(), bonds, wall, with_energy=True) for _ in range(2)]
+    mobility = torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, x.shape[-2]),
+                               dtype=torch.float32, device=cuda_device)
+    update = step_rest.UpdateRows(mobility, torch.randn(x.shape, device=cuda_device), 1.0,
+                                  1e-5, 1e-5 * 2e-4, (3e4, 2e4, 1e4))
+    fused = step_rest.launch_rest(x, forces, bonds, wall, update)
+    want = integrator.bd_update_reference(x, f_p, mobility, None,
+                                          integrator.BDParams(1.0, 1e-5), noise=update.noise)
+    torch.cuda.synchronize()
+    assert step_rest.launch_rest.launches == before + 3
+    assert float((f_p - plain_bonds).abs().max()) > 1e-2      # the nucleolar terms count
+    for a, b in zip(got[0][:4], got[1][:4]):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    _assert_close(got[0].out, f_p)
+    _assert_close(got[0].reaction, r_p)
+    assert float(got[0].bonded_energy) == pytest.approx(float(eb_p), rel=1e-5)
+    assert float(got[0].wall_energy) == pytest.approx(float(ew_p), rel=1e-5)
+    _assert_close(fused.out, want)
+    _assert_close(fused.out - x, want - x, 1e-4)
 
 
 @pytest.mark.gpu

@@ -12,6 +12,14 @@ csrc/contact_tick.cu, on the CPU.
   1e-5 of the largest magnitude of each of forces and reaction, energies
   1e-5 relative; in float32 the closed form also lies no further from the
   float64 wall than float32 autograd does.
+- The rest kernel's plain version with the nucleolar rows live
+  (``rest_reference``: chain bonds, loops, NOR bonds, droplet, wall) against
+  the JAX package's ``bonded_forces`` + ``wall_forces`` on the same inputs,
+  in float32 on both sides: forces within 1e-4 of max|F|, reaction and
+  energies 1e-4 relative (sums in another order, the wall's autograd in
+  float32 on both sides); at R = 2 against two single runs within 1e-6.
+  The nucleolar table the kernel reads, evaluated row by row as the kernel
+  walks it, against the plain nucleolar terms in float64 (1e-12).
 - The tick's grow-and-rerun loop (``events_with_capacity``) driven by the
   plain search, cut to a capacity that is too small, as the kernel cuts it.
 - The G1 step and the relaxation step as the port now assembles them
@@ -159,6 +167,90 @@ def test_rest_on_the_cpu_takes_the_plain_composition():
     assert torch.equal(moved.semiaxes, semi + 2e-8 * (reaction - spring * semi))
 
 
+@pytest.mark.parametrize("bond_scale", [0.5, 1.0])
+def test_rest_reference_with_nucleolar_rows_matches_jax(models, bond_scale):  # noqa: F811
+    jmodel, tmodel, x0, *_ = models
+    assert tmodel.nuc_bonds.shape[0] and tmodel.use_droplet
+    semiaxes = np.asarray([1.2, 1.1, 1.0], np.float32)       # the wall presses
+    wall = tmodel.wall_rows(torch.from_numpy(semiaxes), 0.8)
+    got = step_rest.rest_reference(torch.from_numpy(x0), None, tmodel.bond_rows(bond_scale),
+                                   wall, with_energy=True)
+    fb, eb = jmodel.bonded_forces(jnp.asarray(x0), bond_scale, with_energy=True)
+    fw, rw, ew = jmodel.wall_forces_rows(jnp.asarray(x0), jnp.arange(x0.shape[0]),
+                                         jnp.asarray(semiaxes), 0.8)
+    want = np.asarray(fb) + np.asarray(fw)
+    _close(got.out, want, 1e-4)
+    assert np.abs(np.asarray(rw)).max() > 0
+    np.testing.assert_allclose(got.reaction.numpy(), np.asarray(rw), rtol=1e-4)
+    assert float(got.bonded_energy) == pytest.approx(float(eb), rel=1e-4)
+    assert float(got.wall_energy) == pytest.approx(float(ew), rel=1e-4)
+    # The nucleolar terms are live: without them the forces differ.
+    bare = step_rest.rest_reference(torch.from_numpy(x0), None,
+                                    tmodel.bond_rows(bond_scale)._replace(nucleolar=None), wall)
+    assert float((got.out - bare.out).abs().max()) > 1e-3
+
+
+def test_rest_reference_with_nucleolar_rows_on_two_replicas(models):  # noqa: F811
+    """(R, N, 3) positions: each replica its own bonds, droplet and wall,
+    as a single run of it gives them; the energies summed over both."""
+    _, tmodel, x0, *_ = models
+    rng = np.random.default_rng(17)
+    xs = np.stack([x0, x0 + rng.normal(0, 0.02, x0.shape)]).astype(np.float32)
+    semi = torch.tensor([[1.2, 1.1, 1.0], [1.25, 1.05, 1.0]])
+    bonds = tmodel.bond_rows(0.7)
+    wall = tmodel.wall_rows(semi, 0.8)
+    both = step_rest.rest_reference(torch.from_numpy(xs), None, bonds, wall, with_energy=True)
+    energy = 0.0
+    for r in range(2):
+        one = step_rest.rest_reference(torch.from_numpy(xs[r]), None, bonds,
+                                       wall._replace(semiaxes=semi[r]), with_energy=True)
+        _close(both.out[r], one.out, 1e-6)
+        _close(both.reaction[r], one.reaction, 1e-6)
+        energy += float(one.bonded_energy + one.wall_energy)
+    assert float(both.bonded_energy + both.wall_energy) == pytest.approx(energy, rel=1e-6)
+
+
+def test_nucleolar_table_gives_each_row_its_terms(models):  # noqa: F811
+    """The table the rest kernel reads (``nucleolar_table``), walked row by
+    row as the kernel walks it — a row's partners, the droplet among the
+    other targets, each bond's energy at the end that owns it — gives the
+    plain nucleolar terms, in float64."""
+    _, tmodel, x0, *_ = models
+    nuc = tmodel.nucleolar_rows()
+    x = x0.astype(np.float64)
+    table = nuc.table.numpy().astype(np.int64)
+    b, t = nuc.bonds.shape[0], nuc.targets.shape[0]
+    m = (len(table) - 1 - 2 * b - t) // 3
+    rows, start = table[:m], table[m:2 * m + 1]
+    target, partner = table[2 * m + 1:3 * m + 1], table[3 * m + 1:3 * m + 1 + 2 * b]
+    targets = rows[table[3 * m + 1 + 2 * b:]]
+    assert (np.diff(rows) > 0).all() and (targets == nuc.targets.numpy()).all()
+    scale = 0.7
+    k_nuc, l_nuc = nuc.spring / scale ** 2, nuc.length * scale
+    e, inv_d2, cut2 = nuc.droplet_energy, 1 / nuc.droplet_decay ** 2, nuc.droplet_cutoff ** 2
+    u_cut = -e / (1 + (cut2 * inv_d2) ** 3)
+    forces, energy = np.zeros_like(x), 0.0
+    for k, row in enumerate(rows):
+        for code in partner[start[k]:start[k + 1]]:
+            d = x[row] - x[rows[code if code >= 0 else ~code]]
+            r = np.sqrt(max(d @ d, 1e-30))
+            forces[row] += (-k_nuc * (1 - l_nuc / r) if r > l_nuc else 0.0) * d
+            energy += 0.5 * k_nuc * max(r - l_nuc, 0.0) ** 2 if code >= 0 else 0.0
+        for q, j in enumerate(targets):
+            if q == target[k] or target[k] < 0:
+                continue
+            d = x[row] - x[j]
+            r2 = d @ d
+            if r2 < cut2:
+                s3 = (r2 * inv_d2) ** 3
+                forces[row] += -e * 6 * s3 / (max(r2, 1e-30) * (1 + s3) ** 2) * d
+                energy += 0.5 * (-e / (1 + s3) - u_cut)
+    want, want_energy = step_rest.nucleolar_reference(torch.from_numpy(x), nuc, scale)
+    _close(forces, want, 1e-12)
+    assert np.abs(forces).max() > 1e-3 and abs(energy) > 0
+    assert energy == pytest.approx(float(want_energy), rel=1e-12)
+
+
 def test_step_kernels_refuse_cpu_tensors():
     """The kernels' wrappers take CUDA tensors or raise: the choice of the
     plain version belongs to the callers, by the tensor's device."""
@@ -246,7 +338,8 @@ def _pre_kernel_composition(model, carry, step, noise, relaxation=False):
         params = tint.BDParams(c.temperature, dt)
     pair, _ = model.pair_forces_full(x, core)
     f, _ = step_rest.chain_bonds_reference(x, model.bond_rows(bond))
-    f, _ = model.nucleolar_forces(x, bond, f, None)
+    f_nuc, _ = step_rest.nucleolar_reference(x, model.nucleolar_rows(), bond)
+    f = f + f_nuc
     wf, reaction, _ = twall.wall_forces_reference(x, semiaxes, model.wall_a, model.wall_b,
                                                   model._wall_params(core))
     x = tint.bd_update_reference(x, pair + f + wf, model.mobility, generator, params, noise)
