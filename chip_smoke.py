@@ -14,7 +14,8 @@ prints no result.  It
    says about their kernels: the pair-force kernel the package runs and its
    first version, kept as a yardstick (``ab_pair_forces.cu``); the contact
    tick (``contact_tick.cu``); the rest of a step — bonds, wall, update — and
-   the update alone (``step_rest.cu``);
+   the update alone (``step_rest.cu``); the mitotic stages' chunk of steps
+   (``mitotic_chunk.cu``);
 3. holds the kernel's wrapper against its plain PyTorch version on the card
    (and the first version too): at 300 beads, at inputs made for the kernel's
    control flow, and at three structures of the main path's 59,610 particles;
@@ -33,7 +34,14 @@ prints no result.  It
    command ``cycles`` chains — ``run_prepare``, ``run_anatelophase``,
    ``transition_interphase``, ``run_interphase`` (59,610 particles),
    ``transition_prometaphase``, ``run_prometaphase``, all on the card — with
-   the depth cut (``CONFIG`` below), and checks what every stage wrote;
+   the depth cut (``CONFIG`` below), and checks what every stage wrote and
+   that the mitotic stages launched the chunk kernel once a
+   ``sampling_interval`` and the update kernel only in the relaxation; then
+   phase "mitotic kernel": the chunk kernel against its plain version at the
+   three mitotic phases' start structures of that cycle (576, 576 and 1,152
+   beads), timed against the eager step and the
+   plain version in turns, and the T > 0 statistics of the kernel's runs
+   against the eager step's (see MITOTIC_TOLERANCE);
 5. hands the metaphase over to a second cell (``transition_cycle``), runs a
    short anaphase there and checks that it started from the hand-off;
 6. runs an ensemble of four replicas of the nucleus (4 x 59,610 particles,
@@ -80,8 +88,9 @@ into a scratch directory, keeps ``summary.json``, ``pc1.tsv``, ``aux.json``
 and the log in ``--output`` (default ``build/production/``), and checks the
 trajectory (every stage's frames, 701 G1 frames and 71 windows at full depth), each window's
 counts against its ticks' events, the kernels against their plain versions
-at late-G1 structures, and the counts against the JAX package's run of the same
-workload.  ``--g1-steps`` cuts the G1 (the only cut; the JAX counts then do not
+at late-G1 structures (the chunk kernel at the mitotic phases' start
+structures), the launches, and the counts against the JAX package's run of
+the same workload.  ``--g1-steps`` cuts the G1 (the only cut; the JAX counts then do not
 apply); ``--seconds`` cuts it to what fits that many seconds, by a short
 calibration run.  At full depth it needs an hour or more of the card.
 """
@@ -138,7 +147,11 @@ CONFIG_ENSEMBLE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 
 # engine's and the ensemble's positions lie within TWIN_FACTOR times the
 # distance float32 rounding alone puts between two single-process runs over
 # the same steps (the twin: the same run on a layout whose blocks sum each
-# bead's pair terms in another order), measured in the same call.
+# bead's pair terms in another order), measured in the same call; each of
+# the ensemble's windows differs in at most 1 % of rows from the same
+# replica's window in the one-process ensemble, run in either order of the
+# replicas (at T = 1 the two orders alone put 1.03 % of a window's rows
+# apart in 400 steps, and the ranks' run matched one of them to the row).
 SHARD_RANKS = 2
 CONFIG_SHARDS = {"interphase": {"steps": 2000, "relaxation_steps": 0,
                                 "contactmap_output_window": 1}}
@@ -160,7 +173,8 @@ STORE_RESUME_STEP = 2000
 # kernel and of the step kernels in that process (the counts a subprocess
 # cannot hand back otherwise).
 LAUNCHER = ("import json, runpy, sys\n"
-            "from genome_cycle_tpu_torch.ops import contact, pair_kernels as pk, step_rest\n"
+            "from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest\n"
+            "from genome_cycle_tpu_torch.ops import pair_kernels as pk\n"
             "sys.argv = sys.argv[1:]\n"
             "try:\n"
             "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
@@ -169,7 +183,8 @@ LAUNCHER = ("import json, runpy, sys\n"
             "    print('step kernel launches ' + json.dumps({\n"
             "        'contact_tick': contact.contact_events.launches,\n"
             "        'step_rest': step_rest.launch_rest.launches,\n"
-            "        'bd_update': step_rest.launch_update.launches}), flush=True)\n")
+            "        'bd_update': step_rest.launch_update.launches,\n"
+            "        'mitotic_chunk': mitotic.launch_chunk.launches}), flush=True)\n")
 # `--production`: the reference defaults (examples/config_production.json)
 # into a scratch directory outside the output directory, which keeps
 # summary.json, pc1.tsv, aux.json and the log.  G1 frames whose structures the
@@ -182,15 +197,15 @@ LATE_G1_FRAMES = (100000, 350000, 700000)
 # `--production --seconds S` cuts the G1 to the deepest multiple of 10,000
 # steps that lets the whole script end within S seconds, from the rates of a
 # short calibration run on this card and host (CALIBRATION_CONFIG), each
-# taken at RATE_MARGIN of its reading: the mitotic stages at the slower of
-# its anaphase's and telophase's rate (the prometaphase, which it does not
-# measure, ran at 0.78 to 0.93 of the anaphase's in every run in PERF.md), the
-# relaxation and the G1 at theirs.  PRODUCTION_OVERHEAD_S is held back
-# beyond that for the processes, the analysis, the checks (58 s in one run)
-# and the host's drift: a run whose plan held nothing back (the G1 at its
-# calibrated rate, which it kept) was stopped 50,000 prometaphase steps
-# short.  The production process itself is stopped CHECK_SECONDS before S.
-CALIBRATION_CONFIG = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000},
+# taken at RATE_MARGIN of its reading: the anaphase and telophase at the
+# slower of their two rates, the prometaphase, the relaxation and the G1 at
+# theirs.
+# PRODUCTION_OVERHEAD_S is held back beyond that for the processes, the
+# analysis, the checks (58 s in one run) and the host's drift: a run whose
+# plan held nothing back (the G1 at its calibrated rate, which it kept) was
+# stopped 50,000 prometaphase steps short.  The production process itself is stopped CHECK_SECONDS before S.
+CALIBRATION_CONFIG = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 6000,
+                                        "prometaphase_steps": 6000},
                       "interphase": {"steps": 2000, "relaxation_steps": 2000}}
 RATE_MARGIN = 0.85
 PRODUCTION_OVERHEAD_S = 300
@@ -1123,9 +1138,10 @@ def run_shards(workdir, design, config, x_relaxed, device):
             twin_worst = max(twin_worst, float(np.abs(twin.load_positions(step)
                                                       - theirs.load_positions(step)).max()))
     worst = 0.0
+    window_rows = []
     for r in results:
         for k, target in r["ensemble"]["stores"].items():
-            mine, theirs = opened(target), singles[k]
+            mine, theirs, twin = opened(target), singles[k], twins[len(twins) - 1 - k]
             mine.set_stage("interphase")
             theirs.set_stage("interphase")
             if mine.load_steps() != theirs.load_steps():
@@ -1134,14 +1150,24 @@ def run_shards(workdir, design, config, x_relaxed, device):
                 worst = max(worst, float(np.abs(mine.load_positions(step)
                                                 - theirs.load_positions(step)).max()))
                 a, b = mine.load_contacts(step), theirs.load_contacts(step)
-                if (a is None) != (b is None) or (a is not None
-                                                  and pair_set_difference(a, b) > 0.01 * len(b)):
+                if (a is None) != (b is None):
                     fail("shards", f"ensemble replica {k}: window at step {step} differs")
+                if a is None:
+                    continue
+                differ = pair_set_difference(a, b)
+                differ_twin = pair_set_difference(a, twin.load_contacts(step))
+                window_rows.append((k, step, differ, differ_twin, len(b)))
+                if min(differ, differ_twin) > 0.01 * len(b):
+                    fail("shards", f"ensemble replica {k}: window at step {step} differs in "
+                                   f"{differ} of {len(b)} rows from the one-process "
+                                   f"ensemble, in {differ_twin} from its twin")
     ens_launches = [r["ensemble"]["launches"] for r in results]
     ens_steps = CONFIG_SHARDS_ENSEMBLE["interphase"]["steps"]
     phase("shards", f"ensemble of {ranks_n} over {ranks_n} ranks, {ens_steps} G1 steps: every frame within "
                     f"{worst:.3e} of the one-process ensemble, its twin (the replicas in the other "
                     f"order) within {twin_worst:.3e} (limit {TWIN_FACTOR:g} times that); "
+                    f"windows (replica, step, rows apart from the one-process ensemble, from its "
+                    f"twin, rows; at most 1 % from one of them): {window_rows}; "
                     f"launches {ens_launches}")
     if not worst <= TWIN_FACTOR * twin_worst:
         fail("shards", f"the ensemble over ranks lies {worst} from the one-process ensemble")
@@ -1374,7 +1400,10 @@ def fit_g1_steps(seconds, started, device):
     from genome_cycle_tpu_torch.config import parse_config
     from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
     from genome_cycle_tpu_torch.models.interphase import run_interphase
-    from genome_cycle_tpu_torch.models.transitions import transition_interphase
+    from genome_cycle_tpu_torch.models.prometaphase import run_prometaphase
+    from genome_cycle_tpu_torch.models.transitions import (
+        transition_interphase, transition_prometaphase,
+    )
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_calibration_")
     try:
@@ -1383,16 +1412,20 @@ def fit_g1_steps(seconds, started, device):
         run_anatelophase(store, log=lambda m: None, device=device, timings=timings)
         transition_interphase(store, log=lambda m: None)
         run_interphase(store, log=lambda m: None, device=device, timings=timings)
+        transition_prometaphase(store, log=lambda m: None)
+        run_prometaphase(store, log=lambda m: None, device=device, timings=timings)
         store.close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rate = {k: timings[f"{k}_steps"] / timings[f"{k}_seconds"]
-            for k in ("anaphase", "telophase", "relaxation", "g1")}
+            for k in ("anaphase", "telophase", "prometaphase", "relaxation", "g1")}
     with open(PRODUCTION_CONFIG) as f:
         config = parse_config(f.read())
     m, c = config.mitotic_phase, config.interphase
     mitotic = m.anaphase_steps + m.telophase_steps + m.prometaphase_steps
-    fixed = (mitotic / (RATE_MARGIN * min(rate["anaphase"], rate["telophase"]))
+    fixed = ((m.anaphase_steps + m.telophase_steps)
+             / (RATE_MARGIN * min(rate["anaphase"], rate["telophase"]))
+             + m.prometaphase_steps / (RATE_MARGIN * rate["prometaphase"])
              + c.relaxation_steps / (RATE_MARGIN * rate["relaxation"]))
     left = seconds - (time.perf_counter() - started) - PRODUCTION_OVERHEAD_S - fixed
     steps = min(PRODUCTION_G1_STEPS, int(left * RATE_MARGIN * rate["g1"]) // 10000 * 10000)
@@ -1508,14 +1541,19 @@ def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_
                 semi = torch.as_tensor(ctx.wall_semiaxes, dtype=torch.float32, device=device)
                 step_timed = check_step_kernels(label, model, x, ctx.core_scale, ctx.bond_scale,
                                                 semi, step_errors, time_them=step == late[-1])
+            mitotic_timed = check_mitotic_kernel(
+                mitotic_starts(store, store.load_config(), device), statistics=False)
             checked = check_production(store, summary, launches, pk)
             phase("production", f"step kernel launches in the production process: "
                                 f"{main_step_launches}")
             if main_step_launches["step_rest"] < icfg.relaxation_steps + icfg.steps \
                     or main_step_launches["contact_tick"] < icfg.steps // \
                     icfg.contactmap_update_interval \
-                    or main_step_launches["bd_update"] < icfg.relaxation_steps:
-                fail("production", "the step kernels were not launched once a step (a tick)")
+                    or main_step_launches["bd_update"] != icfg.relaxation_steps:
+                fail("production", "the step kernels were not launched once a step (a tick), "
+                                   "or the update kernel beside the relaxation's steps")
+            check_chunk_launches("production", main_step_launches,
+                                 store.load_config().mitotic_phase)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -1537,7 +1575,9 @@ def production(g1_steps, card, started, device, seconds=None, output=PRODUCTION_
         "library_ms": None,
         "shapes": shapes,
         "production": checked,
-    }] + step_kernel_entries(main_step_launches, step_errors, step_timed)}), flush=True)
+    }] + step_kernel_entries(main_step_launches, step_errors, step_timed)
+        + [mitotic_kernel_entry(main_step_launches["mitotic_chunk"], mitotic_timed)]}),
+          flush=True)
 
 
 def check_production(store, summary, launches, pk):
@@ -1647,20 +1687,23 @@ STEP_KERNELS = {
 
 
 def step_launches():
-    """The launches the step kernels' wrappers have counted in this process."""
-    from genome_cycle_tpu_torch.ops import contact, step_rest
+    """The launches the step kernels' wrappers (and the mitotic chunk
+    kernel's) have counted in this process."""
+    from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest
 
     return {"contact_tick": contact.contact_events.launches,
             "step_rest": step_rest.launch_rest.launches,
-            "bd_update": step_rest.launch_update.launches}
+            "bd_update": step_rest.launch_update.launches,
+            "mitotic_chunk": mitotic.launch_chunk.launches}
 
 
 def set_step_launches(counts):
-    from genome_cycle_tpu_torch.ops import contact, step_rest
+    from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest
 
     contact.contact_events.launches = counts["contact_tick"]
     step_rest.launch_rest.launches = counts["step_rest"]
     step_rest.launch_update.launches = counts["bd_update"]
+    mitotic.launch_chunk.launches = counts["mitotic_chunk"]
 
 
 def device_launches(fn, calls):
@@ -1984,6 +2027,254 @@ def step_launch_counts(model, x, semiaxes, step0, generator):
     return result
 
 
+
+# ---- the mitotic chunk kernel: a phase's sampling_interval steps in one
+# launch (csrc/mitotic_chunk.cu) -------------------------------------------------
+#
+# Held against its plain version (ops/mitotic.py::run_chunk_reference: the
+# model's eager forces and the plain update, step after step) at each phase's
+# start structure of the cycle: MITOTIC_COLD_STEPS steps at T = 0 in one
+# launch within MITOTIC_TOLERANCE (absolute; coordinates of order 1 to 10,
+# float32 sums in another order), the plain run's beads moving more than
+# MITOTIC_MIN_MOVE in them (so that the tolerance is small beside the motion
+# it checks); one step at the phase's temperature on the same standard
+# normals within MITOTIC_STEP_TOLERANCE (absolute); the term tables' forces
+# (ops/mitotic.py::forces_from_terms_reference) within
+# MITOTIC_TABLE_TOLERANCE of max|F| from the model's eager forces, as the CPU
+# tests hold them; two launches equal to the bit.  At the
+# phase's temperature, MITOTIC_SEEDS runs of MITOTIC_STAT_STEPS steps through
+# the kernel and as many through the eager step: the mean kinetochore-pole
+# distance, radius of gyration and chain-bond second moment at the end agree
+# when |mean_1 - mean_2| <= MITOTIC_SIGMAS * sqrt(se_1^2 + se_2^2), se the
+# standard error of a mean over the seeds.
+MITOTIC_KERNEL = ("genome_cycle_tpu_torch/csrc/mitotic_chunk.cu",
+                  "JAX: XLA-fused lax.scan of model.step over a sampling_interval chunk, "
+                  "genome_cycle_tpu/models/anatelophase.py:185 and "
+                  "genome_cycle_tpu/models/prometaphase.py:193")
+MITOTIC_PHASES = ("anaphase", "telophase", "prometaphase")
+MITOTIC_COLD_STEPS = 200
+MITOTIC_TOLERANCE = 1e-4
+MITOTIC_STEP_TOLERANCE = 1e-5
+MITOTIC_MIN_MOVE = 0.05
+MITOTIC_TABLE_TOLERANCE = 1e-5
+MITOTIC_SEEDS = 8
+MITOTIC_STAT_STEPS = 2000
+MITOTIC_SIGMAS = 4.0
+
+
+def check_chunk_launches(name, counts, m):
+    """One chunk-kernel launch a ``sampling_interval`` of every mitotic
+    phase's steps, and nothing else."""
+    chunks = sum(getattr(m, f"{p}_steps") // m.sampling_interval for p in MITOTIC_PHASES)
+    phase(name, f"mitotic chunk kernel: {counts['mitotic_chunk']} launches for "
+                f"{chunks * m.sampling_interval} mitotic steps ({chunks} chunks of "
+                f"{m.sampling_interval})")
+    if counts["mitotic_chunk"] != chunks:
+        fail(name, f"{counts['mitotic_chunk']} mitotic chunk-kernel launches, expected {chunks}")
+
+
+def mitotic_starts(store, config, device):
+    """Each mitotic phase's model and start structure (its frame 0) in
+    ``store``, with what the checks need: the phase's terms, chunk, eager
+    step, kinetochores and their poles."""
+    from genome_cycle_tpu_torch.models.anatelophase import AnatelophaseModel
+    from genome_cycle_tpu_torch.models.prometaphase import PrometaphaseModel
+
+    ana = AnatelophaseModel.from_design(store.load_anatelophase_design(), config, device)
+    pro = PrometaphaseModel.from_design(store.load_prometaphase_design(), config, device)
+    starts = {}
+    for stage in MITOTIC_PHASES:
+        store.set_stage(stage)
+        x = torch.as_tensor(store.load_positions(0), dtype=torch.float32, device=device)
+        if stage == "prometaphase":
+            starts[stage] = dict(model=pro, x=x, terms=pro.mitotic_terms(), chunk=pro.run_chunk,
+                                 step=pro.step, kinetochores=pro.kfiber_kinetochores,
+                                 poles=pro.kfiber_poles)
+            continue
+        telophase = stage == "telophase"
+        starts[stage] = dict(
+            model=ana, x=x, terms=ana.mitotic_terms(telophase),
+            chunk=lambda c, steps, t=telophase: ana.run_chunk(c, steps, t),
+            step=lambda c, k, t=telophase: ana.step(c, k, t),
+            kinetochores=ana.kinetochores,
+            poles=ana.pole.reshape(1, 3).expand(len(ana.kinetochores), 3))
+    return starts
+
+
+def time_chunk(fn):
+    """Milliseconds of one call of ``fn`` by CUDA events on the current
+    stream: the card's time for a kernel of milliseconds, the host's pace for
+    a chunk of eager steps."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def mitotic_observables(x, start):
+    """Mean kinetochore-pole distance, radius of gyration and chain-bond
+    second moment of positions ``x``."""
+    model = start["model"]
+    pairs = model.bond_pairs
+    bonds = x[pairs[:, 0]] - x[pairs[:, 1]]
+    return (float((x[start["kinetochores"]] - start["poles"]).norm(dim=1).mean()),
+            float(((x - x.mean(dim=0)) ** 2).sum(dim=1).mean().sqrt()),
+            float((bonds * bonds).sum(dim=1).mean()))
+
+
+def mitotic_statistics(name, start):
+    """MITOTIC_SEEDS runs of MITOTIC_STAT_STEPS steps at the phase's
+    temperature through the kernel (a chunk a sampling_interval) and through
+    the eager step; fails beyond MITOTIC_SIGMAS.  Returns the means and
+    standard errors."""
+    device = start["x"].device
+    m = start["model"].config
+    runs = {"kernel": [], "eager": []}
+    for seed in range(MITOTIC_SEEDS):
+        for label, offset in (("kernel", 1000), ("eager", 2000)):
+            generator = torch.Generator(device=device)
+            generator.manual_seed(offset + seed)
+            carry = (start["x"], generator)
+            if label == "kernel":
+                for _ in range(MITOTIC_STAT_STEPS // m.sampling_interval):
+                    carry = start["chunk"](carry, m.sampling_interval)
+            else:
+                for k in range(MITOTIC_STAT_STEPS):
+                    carry = start["step"](carry, k)
+            runs[label].append(mitotic_observables(carry[0], start))
+    result = {}
+    for column, label in enumerate(("kinetochore_pole_distance", "radius_of_gyration",
+                                    "bond_second_moment")):
+        a = np.asarray([r[column] for r in runs["kernel"]])
+        b = np.asarray([r[column] for r in runs["eager"]])
+        se = float(np.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b)))
+        delta = float(a.mean() - b.mean())
+        result[label] = dict(kernel=float(a.mean()), eager=float(b.mean()), delta=delta,
+                             se=se, within=abs(delta) <= MITOTIC_SIGMAS * se)
+        phase(name, f"T = {m.temperature}: {label} after {MITOTIC_STAT_STEPS} steps, "
+                    f"{MITOTIC_SEEDS} seeds: kernel {a.mean():.6f}, eager step {b.mean():.6f}, "
+                    f"difference {delta:.3e}, limit {MITOTIC_SIGMAS:g} x {se:.3e}")
+        if not result[label]["within"]:
+            fail(name, f"{label}: the kernel's mean is off the eager step's by more than "
+                       f"{MITOTIC_SIGMAS:g} standard errors")
+    return result
+
+
+def check_mitotic_kernel(starts, statistics=True):
+    """The chunk kernel against its plain version at each phase's start
+    structure (see MITOTIC_TOLERANCE), timed against the plain version and
+    the eager step in turns (CUDA events, a chunk of sampling_interval steps
+    each), with its bound; with ``statistics`` also the T > 0 statistics
+    against the eager step.  Fails beyond the tolerances.  Returns each
+    phase's numbers."""
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    counts = step_launches()
+    results = {}
+    for stage, start in starts.items():
+        name = f"mitotic kernel: {stage}"
+        model, x, terms = start["model"], start["x"], start["terms"]
+        m, n = model.config, model.n
+        generator = torch.Generator(device=x.device)
+        generator.manual_seed(7)
+        noise = torch.randn((MITOTIC_COLD_STEPS, n, 3), generator=generator, device=x.device)
+        want = mitotic.run_chunk_reference(x, terms.forces, model.mobility, noise, 0.0,
+                                           m.timestep)
+        got = mitotic.run_chunk(x, terms, model.mobility, noise, 0.0, m.timestep)
+        cold = float((got - want).abs().max())
+        moved = float((want - x).abs().max())
+        one = noise[:1].contiguous()
+        got = mitotic.run_chunk(x, terms, model.mobility, one, m.temperature, m.timestep)
+        plain = mitotic.run_chunk_reference(x, terms.forces, model.mobility, one,
+                                            m.temperature, m.timestep)
+        step_err = float((got - plain).abs().max())
+        table = mitotic.forces_from_terms_reference(x, terms)
+        eager_forces = terms.forces(x)
+        table_err = float((table - eager_forces).abs().max() / eager_forces.abs().max())
+        chunk_noise = torch.randn((m.sampling_interval, n, 3), generator=generator,
+                                  device=x.device)
+        twice = [mitotic.run_chunk(x, terms, model.mobility, chunk_noise, m.temperature,
+                                   m.timestep) for _ in range(2)]
+        torch.cuda.synchronize()
+        bitwise = torch.equal(twice[0], twice[1])
+        phase(name, f"{n} beads, {terms.table.shape[1]} term slots a bead, "
+                    f"{len(terms.sources)} point sources; {MITOTIC_COLD_STEPS} steps at T = 0 "
+                    f"in one launch against the plain version: max|dx| {cold:.3e} (limit "
+                    f"{MITOTIC_TOLERANCE:g}), beads moved up to {moved:.4f} (at least "
+                    f"{MITOTIC_MIN_MOVE:g}); one step at T = {m.temperature} on the same noise: "
+                    f"max|dx| {step_err:.3e}; the tables' forces {table_err:.3e} of max|F| "
+                    f"from the eager forces (limit {MITOTIC_TABLE_TOLERANCE:g}); two launches "
+                    f"of {m.sampling_interval} steps equal to the bit: {bitwise}")
+        if not (cold <= MITOTIC_TOLERANCE and step_err <= MITOTIC_STEP_TOLERANCE and bitwise):
+            fail(name, "the chunk kernel differs from its plain version (or from itself)")
+        if not moved > MITOTIC_MIN_MOVE:
+            fail(name, f"the beads moved {moved} in {MITOTIC_COLD_STEPS} steps: too little "
+                       f"for the comparison to show a fault")
+        if not table_err <= MITOTIC_TABLE_TOLERANCE:
+            fail(name, "the term tables' forces differ from the model's eager forces")
+
+        # -- times: the kernel, the eager step as the stage ran it before,
+        # the plain version; in turns.
+        def kernel():
+            mitotic.run_chunk(x, terms, model.mobility, chunk_noise, m.temperature, m.timestep)
+
+        def eager_steps():
+            carry = (x, generator)
+            for k in range(m.sampling_interval):
+                carry = start["step"](carry, k)
+
+        def plain_chunk():
+            mitotic.run_chunk_reference(x, terms.forces, model.mobility, chunk_noise,
+                                        m.temperature, m.timestep)
+
+        order = [kernel, eager_steps, plain_chunk]
+        order[0]()                                  # the eager ones are warm
+        times = [[] for _ in order]
+        for k in list(range(len(order))) + list(reversed(range(len(order)))):
+            times[k].append(time_chunk(order[k]))
+        ms, eager_ms, plain_ms = (float(np.mean(t)) for t in times)
+        k_steps = m.sampling_interval
+        ops_ms = OPS_DISTANCE_TEST * n * n * k_steps / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = ((12 * n * k_steps + 12 * n * 2 + 4 * n + 4 * terms.table.numel()
+                     + 16 * terms.fiber_spring.numel()) / PEAK_BYTES_PER_S * 1e3)
+        bound = max(ops_ms, bytes_ms)
+        phase("time", f"mitotic chunk kernel, {stage}, {n} beads, {k_steps} steps a launch: "
+                      f"{ms:.4f} ms ({ms / k_steps * 1e3:.3f} us a step); the eager step "
+                      f"{eager_ms / k_steps:.4f} ms a step, the plain version "
+                      f"{plain_ms / k_steps:.4f} ms a step; bound {bound:.5f} ms a launch "
+                      f"({ops_ms:.5f} operations, {bytes_ms:.5f} bytes), the kernel "
+                      f"{ms / bound:.1f} times it on {mitotic.CLUSTER} of the card's SMs")
+        results[stage] = dict(
+            beads=n, steps_per_launch=k_steps, cluster=mitotic.CLUSTER, ms=ms,
+            ms_per_step=ms / k_steps, plain_ms=plain_ms,
+            eager_step_ms=eager_ms / k_steps, bound_ms=bound,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            max_abs_err_t0=cold, moved_t0=moved, max_abs_err_one_step=step_err,
+            table_rel_err=table_err, bitwise=bitwise,
+            statistics=mitotic_statistics(name, start) if statistics else None)
+    set_step_launches(counts)                 # checks and timings do not count
+    return results
+
+
+def mitotic_kernel_entry(launches, results):
+    """The chunk kernel's entry of the kernels line: the prometaphase's
+    numbers (1,152 beads at the reference's width) in front, every phase's
+    under ``shapes``."""
+    main = results["prometaphase"]
+    return {
+        "name": "mitotic_chunk", "route": "cuda", "source": MITOTIC_KERNEL[0],
+        "replaces": MITOTIC_KERNEL[1], "launches": launches,
+        "max_abs_err": max(max(r["max_abs_err_t0"], r["max_abs_err_one_step"])
+                           for r in results.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "steps_per_launch": main["steps_per_launch"], "shapes": results,
+    }
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="smoke test of the port on one CUDA card")
     parser.add_argument("--production", action="store_true",
@@ -2035,7 +2326,7 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("ab_pair_forces", "contact_tick", "step_rest")
+    sources = ("ab_pair_forces", "contact_tick", "step_rest", "mitotic_chunk")
     _build.build_all(sources)               # one nvcc a source, all at once
     phase("build", f"{', '.join(s + '.cu' for s in sources)} built in "
                    f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
@@ -2043,7 +2334,8 @@ def main():
         kernel = ""
         for line in _build.build_log(source).splitlines():
             entry = re.search(r"\d(ab_pair_forces_\w+?_kernel)ILb(\d)E", line) or re.search(
-                r"\d+(contact_tick_kernel|step_rest_kernel|drift_limit_kernel|bd_update_kernel)",
+                r"\d+(contact_tick_kernel|step_rest_kernel|drift_limit_kernel|bd_update_kernel"
+                r"|mitotic_chunk_kernel)",
                 line)
             if entry:
                 kernel = entry.group(1) + (
@@ -2077,7 +2369,7 @@ def main():
     try:
         torch.cuda.reset_peak_memory_stats()
         pk.ab_pair_forces.launches = 0
-        set_step_launches(dict.fromkeys(STEP_KERNELS, 0))
+        set_step_launches(dict.fromkeys(step_launches(), 0))
         timings = {}
         phase("depth", f"cut to {json.dumps(CONFIG)}; second cell {json.dumps(CONFIG_NEXT)}")
         store, config = prepare_nucleus(workdir, device, timings)
@@ -2118,13 +2410,15 @@ def main():
         ticks = (steps // icfg.contactmap_update_interval + 1)
         if main_step_launches["contact_tick"] < ticks \
                 or main_step_launches["step_rest"] < steps + relax_steps \
-                or main_step_launches["bd_update"] < relax_steps:
+                or main_step_launches["bd_update"] != relax_steps:
             fail("check", f"the step kernels were not launched on the main path: at least "
-                          f"{ticks} ticks, {steps + relax_steps} rest and {relax_steps} update "
-                          f"launches expected")
+                          f"{ticks} ticks and {steps + relax_steps} rest launches, and "
+                          f"{relax_steps} update launches (the relaxation's only) expected")
+        check_chunk_launches("check", main_step_launches, m)
         x_metaphase = check_prometaphase(store, m)
         if not np.allclose(metaphase, x_metaphase, rtol=1e-4, atol=1e-4):
             fail("check", "returned metaphase positions differ from the last stored frame")
+        starts = mitotic_starts(store, config, device)
 
         # ---- 5. the second cell: hand-off and a short anaphase ---------------
         next_store = open_store(workdir, "cell_1", CONFIG_NEXT, SEED + 1)
@@ -2242,6 +2536,10 @@ def main():
                                  torch.Generator(device=device))
     set_step_launches(main_step_launches)
 
+    # ---- 3d. the mitotic chunk kernel at the phases' start structures -------
+    mitotic_timed = check_mitotic_kernel(starts)
+    del starts
+
     # ---- 8. the multi-device paths, two ranks on this card ------------------
     phase("depth", f"shards: {json.dumps(CONFIG_SHARDS)}; ensemble over the ranks "
                    f"{json.dumps(CONFIG_SHARDS_ENSEMBLE)}")
@@ -2329,7 +2627,9 @@ def main():
         "library_ms": None,
         "shapes": timed,
     }] + step_kernel_entries(main_step_launches, step_errors, step_timed,
-                             device_launches_per_call=counted)}), flush=True)
+                             device_launches_per_call=counted)
+        + [mitotic_kernel_entry(main_step_launches["mitotic_chunk"], mitotic_timed)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

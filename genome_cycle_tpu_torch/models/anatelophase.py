@@ -4,18 +4,22 @@ PyTorch counterpart of the JAX package's ``models/anatelophase.py``, itself a
 re-design of ``stage_anatelophase/simulation_driver.cpp`` (SURVEY.md §2.5):
 one coarse bead system (N ~ hundreds), two phases with a forcefield swap at
 the anaphase->telophase boundary.  The coarse system is small, so pairwise
-repulsion uses the dense masked O(N^2) path (no cell grid, no hand-written
-kernel: the JAX package runs none here either).
+repulsion uses the dense masked O(N^2) path (no cell grid).
 
-A step is a few dozen small launches and a stage takes hundreds of thousands
-of them, so the step never waits for the device: no value is read back, no
-branch depends on a tensor, energies are evaluated only for a progress line.
+The stage runs a chunk of ``sampling_interval`` steps at a time
+(:meth:`AnatelophaseModel.run_chunk`, ``ops/mitotic.py::run_chunk``): on the
+card one launch of the hand-written chunk kernel (``csrc/mitotic_chunk.cu``),
+as the JAX package runs one ``lax.scan`` a chunk; on the CPU the eager
+:meth:`AnatelophaseModel.step` K times.  The eager step, a few dozen small
+launches, stays as the kernel's plain version and yardstick; it never waits
+for the device: no value is read back, no branch depends on a tensor,
+energies are evaluated only for a progress line.
 
 Noise: each phase draws from its own ``torch.Generator`` on the run's device,
-seeded ``design.seed`` (anaphase) and ``design.seed + 1`` (telophase).  The
-numbers differ from the JAX package's split ``PRNGKey``, so runs at
-temperature > 0 agree in distribution only; at temperature 0 they agree step
-for step.
+seeded ``design.seed`` (anaphase) and ``design.seed + 1`` (telophase), a
+chunk's (K, N, 3) standard normals in one draw.  The numbers differ from the
+JAX package's split ``PRNGKey``, so runs at temperature > 0 agree in
+distribution only; at temperature 0 they agree step for step.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import MitoticPhaseConfig, SimulationConfig
 from ..store import StageDesign
+from ..ops import mitotic
 from ..ops import potentials as pot
 from ..ops.bonded import (
     bending_forces,
@@ -80,6 +85,7 @@ class AnatelophaseModel(nn.Module):
             "origin", torch.zeros(3, dtype=torch.float32, device=device),
             persistent=False,
         )
+        self._terms = {}
 
     @property
     def device(self):
@@ -156,6 +162,27 @@ class AnatelophaseModel(nn.Module):
         )
         return (x, generator)
 
+    def mitotic_terms(self, telophase: bool) -> mitotic.MitoticTerms:
+        """The phase's term table and parameters for the chunk kernel, built
+        once a phase."""
+        if telophase not in self._terms:
+            self._terms[telophase] = mitotic.terms_from_anatelophase(self, telophase)
+        return self._terms[telophase]
+
+    @torch.no_grad()
+    def run_chunk(self, carry, steps: int, telophase: bool):
+        """``steps`` BD steps: the chunk's (steps, N, 3) standard normals in
+        one draw from the generator, then ``ops/mitotic.py::run_chunk`` (one
+        kernel launch on the card; :meth:`step` ``steps`` times, step k with
+        the draw's slab k, on the CPU)."""
+        x, generator = carry
+        m = self.config
+        noise = torch.randn((steps, self.n, 3), dtype=x.dtype, device=x.device,
+                            generator=generator)
+        x = mitotic.run_chunk(x, self.mitotic_terms(telophase), self.mobility, noise,
+                              m.temperature, m.timestep)
+        return (x, generator)
+
     def initial_rods(self, rng: np.random.Generator, chains) -> np.ndarray:
         """Randomly-directed rods from Gaussian-displaced centroids at
         -spindle_axis (simulation_driver.cpp:221-237)."""
@@ -194,12 +221,13 @@ def design_arrays(design: StageDesign, m: MitoticPhaseConfig) -> dict:
     )
 
 
-def run_stage_phase(store, stage, steps, m, step_fn, energy_fn, state, log,
+def run_stage_phase(store, stage, steps, m, chunk_fn, energy_fn, state, log,
                     timings=None):
     """The sampling loop the mitotic phases share: clear the stage's frames,
     store step 0, then a frame every ``sampling_interval`` steps and a
     progress line (mean energy per bead) every ``logging_interval``.
-    ``step_fn(state, step)`` advances the state ``(x, generator)``.  Returns
+    ``chunk_fn(state, steps)`` advances the state ``(x, generator)`` by
+    ``sampling_interval`` steps, one chunk a frame.  Returns
     the final state; ``timings`` receives the phase's host-clock seconds
     (device synchronised) and step count under ``<stage>_seconds/_steps``."""
     device = state[0].device
@@ -220,8 +248,7 @@ def run_stage_phase(store, stage, steps, m, step_fn, energy_fn, state, log,
     t0 = clock()
     n_chunks = steps // m.sampling_interval
     for chunk in range(n_chunks):
-        for s in range(m.sampling_interval):
-            state = step_fn(state, s)
+        state = chunk_fn(state, m.sampling_interval)
         step = (chunk + 1) * m.sampling_interval
         sample(step, state[0])
         if step % m.logging_interval == 0:
@@ -268,7 +295,7 @@ def run_anatelophase(store, log=print, device=None, timings: Optional[dict] = No
 
         return run_stage_phase(
             store, stage, steps, m,
-            lambda state, s: model.step(state, s, telophase),
+            lambda state, steps: model.run_chunk(state, steps, telophase),
             mean_energy, (x, seeded_generator(seed, device)), log, timings,
         )
 

@@ -4,15 +4,18 @@ PyTorch counterpart of the JAX package's ``models/prometaphase.py``, itself a
 re-design of ``stage_prometaphase/simulation_driver.cpp`` (SURVEY.md §2.8):
 duplicated sister chromatids, sister-kinetochore cohesion, two kinetochore
 fiber fields (one per pole) and the polar ejection force-flux potential from
-both poles.  Small coarse system -> dense pairwise repulsion, plain PyTorch.
+both poles.  Small coarse system -> dense pairwise repulsion (no cell grid).
 
 The two fiber fields act on disjoint kinetochores, so they are one
 :func:`kfiber_forces` call with a pole for each kinetochore; the two ejection
-sources are one :func:`point_source_forces` call.  Like the anatelophase step,
-the step never waits for the device.
+sources are one :func:`point_source_forces` call.  Like the anatelophase
+stage, the stage runs a chunk of ``sampling_interval`` steps at a time
+(:meth:`PrometaphaseModel.run_chunk`: one launch of ``csrc/mitotic_chunk.cu``
+on the card, the eager :meth:`PrometaphaseModel.step` K times on the CPU).
 
-Noise: one ``torch.Generator`` on the run's device, seeded ``design.seed``;
-see ``models/anatelophase.py`` on how runs compare with the JAX package's.
+Noise: one ``torch.Generator`` on the run's device, seeded ``design.seed``,
+a chunk's standard normals in one draw; see ``models/anatelophase.py`` on
+how runs compare with the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import MitoticPhaseConfig, SimulationConfig
 from ..store import StageDesign
+from ..ops import mitotic
 from ..ops import potentials as pot
 from ..ops.bonded import (
     bending_forces,
@@ -73,6 +77,7 @@ class PrometaphaseModel(nn.Module):
         )
         for name, tensor in derived.items():
             self.register_buffer(name, tensor, persistent=False)
+        self._terms = None
 
     @property
     def device(self):
@@ -152,6 +157,25 @@ class PrometaphaseModel(nn.Module):
         )
         return (x, generator)
 
+    def mitotic_terms(self) -> mitotic.MitoticTerms:
+        """The term table and parameters for the chunk kernel, built once."""
+        if self._terms is None:
+            self._terms = mitotic.terms_from_prometaphase(self)
+        return self._terms
+
+    @torch.no_grad()
+    def run_chunk(self, carry, steps: int):
+        """``steps`` BD steps: the chunk's (steps, N, 3) standard normals in
+        one draw from the generator, then ``ops/mitotic.py::run_chunk`` (one
+        kernel launch on the card; :meth:`step` ``steps`` times on the CPU)."""
+        x, generator = carry
+        m = self.config
+        noise = torch.randn((steps, self.n, 3), dtype=x.dtype, device=x.device,
+                            generator=generator)
+        x = mitotic.run_chunk(x, self.mitotic_terms(), self.mobility, noise,
+                              m.temperature, m.timestep)
+        return (x, generator)
+
 
 def design_arrays(design: StageDesign, m: MitoticPhaseConfig) -> dict:
     """The model's numpy arrays from a stage design."""
@@ -215,7 +239,7 @@ def run_prometaphase(store, log=print, device=None, timings: Optional[dict] = No
             return float(model.forces(x, with_energy=True)[1]) / model.n
 
     (x, _) = run_stage_phase(
-        store, "prometaphase", m.prometaphase_steps, m, model.step, mean_energy,
+        store, "prometaphase", m.prometaphase_steps, m, model.run_chunk, mean_energy,
         (x, seeded_generator(design.seed, device)), log, timings,
     )
     return x.cpu().numpy()

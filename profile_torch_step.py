@@ -15,10 +15,14 @@ the one launch of the rest kernel (bonds, wall, update, wall ODE); the rest
 kernel's bonds alone and wall alone, the update kernel and the pair kernel's
 first version are timed apart.  ``torch.profiler`` windows over whole G1
 steps, relaxation steps and ticks give the device's busy share, the device
-kernels started a step and the device time by kernel name.  The steps of the three mitotic phases (576
-coarse beads, 1,152 with sisters) are timed and profiled the same way, for
-their launches a step, with the update kernel on the card at their sizes (as
-they launch it, and with the relaxation's displacement limit); and so is the
+kernels started a step and the device time by kernel name.  The eager steps of the three mitotic phases
+(576 coarse beads, 1,152 with sisters) are timed and profiled the same way,
+for their launches a step, with the update kernel and its plain version on
+the card at their sizes (as the eager step launches it, and with the
+relaxation's displacement limit), and beside them the phases' steps as the
+stages run them, a chunk of ``sampling_interval`` steps in one launch of the
+chunk kernel (ms a step, launches and busy share a chunk, the kernel alone,
+two runs compared to the bit); and so is the
 G1 step of an ensemble of R = 1, 2, 4 and 8 replicas of the nucleus in
 lock-step (one launch of the pair kernel a step for all of them).  Prints one JSON object and writes it to
 ``DIR/profile_torch_step.json`` (default ``build/profile``).  Needs a CUDA card.
@@ -87,23 +91,30 @@ def profile_window(step_fn, steps, step_ms):
 # Launches a kernel is timed over by CUDA events: few enough that the host,
 # at some tens of microseconds a launch, stays queued ahead of the card.
 DEVICE_REPEATS = 20
+# Chunks of a mitotic phase's sampling_interval steps timed and run twice.
+CHUNKS = 5
 
 
 def update_kernel_times(x, mobility, m, spacestep):
     """Milliseconds on the card (CUDA events, the host queued ahead) of the
-    update kernel at positions ``x`` as a mitotic step launches it, and
-    with the relaxation's displacement limit, beside its bound (position,
-    force and noise read, position written, the mobility: 52 bytes a bead
-    at 3.35 TB/s)."""
+    update kernel at positions ``x`` as a mitotic step launched it before the
+    chunk kernel, and with the relaxation's displacement limit, and of its
+    plain version (``bd_update_reference``) likewise, beside its bound
+    (position, force and noise read, position written, the mobility: 52
+    bytes a bead at 3.35 TB/s)."""
     import chip_smoke
     from genome_cycle_tpu_torch.ops import step_rest
+    from genome_cycle_tpu_torch.ops.integrator import BDParams, bd_update_reference
 
     forces = torch.randn_like(x) * 100.0
     noise = torch.randn_like(x)
     times = {}
-    for label, limit in (("no_limit_ms", None), ("with_limit_ms", spacestep)):
-        times[label] = chip_smoke.time_ms(lambda: step_rest.launch_update(
+    for label, limit in (("no_limit", None), ("with_limit", spacestep)):
+        times[f"{label}_ms"] = chip_smoke.time_ms(lambda: step_rest.launch_update(
             x, forces, mobility, noise, m.temperature, m.timestep, limit), DEVICE_REPEATS)
+        times[f"{label}_plain_ms"] = chip_smoke.time_ms(lambda: bd_update_reference(
+            x, forces, mobility, None, BDParams(m.temperature, m.timestep, limit), noise=noise),
+            DEVICE_REPEATS)
     n = x.shape[-2]
     times["bound_ms"] = ((chip_smoke.STEP_BYTES_PER_REPLICA_BEAD
                           + chip_smoke.UPDATE_SHARED_BYTES_PER_BEAD) * n
@@ -112,11 +123,55 @@ def update_kernel_times(x, mobility, m, spacestep):
     return times
 
 
+def chunk_steps(start, chunk, terms, model, m, repeats):
+    """A phase's steps a chunk of ``sampling_interval`` at a time, as the
+    stage runs them on the card (the chunk's ``randn`` and one launch of the
+    chunk kernel): host-clock milliseconds a step over ``repeats`` chunks,
+    the kernel alone by CUDA events, device launches and busy share a chunk
+    (``torch.profiler``), and two runs from one start and seed compared to
+    the bit."""
+    import chip_smoke
+    from genome_cycle_tpu_torch import convert
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    steps = m.sampling_interval
+    carry = convert.mitotic_state_from_numpy(start, 1, model.device)
+
+    def one_chunk():
+        nonlocal carry
+        carry = chunk(carry, steps)
+
+    chunk_ms = host_ms(one_chunk, repeats)
+    window = profile_window(one_chunk, 3, chunk_ms)
+    window.pop("by_kernel")
+    x = carry[0]
+    noise = torch.randn((steps, model.n, 3), device=x.device)
+    kernel_ms = chip_smoke.time_ms(lambda: mitotic.run_chunk(
+        x, terms, model.mobility, noise, m.temperature, m.timestep), 3)
+    twice = []
+    for _ in range(2):
+        carry = convert.mitotic_state_from_numpy(start, 1, model.device)
+        for _ in range(repeats):
+            one_chunk()
+        twice.append(carry[0])
+    return {
+        "steps_per_chunk": steps,
+        "chunk_ms_per_step": chunk_ms / steps,
+        "steps_per_second": steps * 1e3 / chunk_ms,
+        "kernel_alone_ms_per_chunk": kernel_ms,
+        "device_busy_share": window["device_busy_share_of_unprofiled_steps"],
+        "device_kernel_launches_per_chunk": window["device_kernel_launches_per_step"],
+        "two_runs_bitwise_equal": bool(torch.equal(*twice)),
+        "two_runs_chunks": repeats,
+    }
+
+
 def mitotic_steps(store, config, x_interphase, device, repeats):
-    """Host-clock milliseconds, launches and busy share of one step of the
-    anaphase, the telophase and the prometaphase, each on the structure its
-    stage starts from in the stored cycle (the prometaphase on the G1
-    structure just profiled, coarse-grained and duplicated)."""
+    """Host-clock milliseconds, launches and busy share of one eager step of
+    the anaphase, the telophase and the prometaphase, each on the structure
+    its stage starts from in the stored cycle (the prometaphase on the G1
+    structure just profiled, coarse-grained and duplicated), and the same of
+    the chunk kernel's steps (:func:`chunk_steps`)."""
     from genome_cycle_tpu_torch import convert
     from genome_cycle_tpu_torch.models.anatelophase import AnatelophaseModel
     from genome_cycle_tpu_torch.models.prometaphase import PrometaphaseModel
@@ -129,10 +184,12 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
     ana = AnatelophaseModel.from_design(store.load_anatelophase_design(), config, device)
     pro = PrometaphaseModel.from_design(store.load_prometaphase_design(), config, device)
     result = {}
-    for stage, step in (
-        ("anaphase", lambda c, s: ana.step(c, s, False)),
-        ("telophase", lambda c, s: ana.step(c, s, True)),
-        ("prometaphase", pro.step),
+    for stage, step, chunk, model in (
+        ("anaphase", lambda c, s: ana.step(c, s, False),
+         lambda c, k: ana.run_chunk(c, k, False), ana),
+        ("telophase", lambda c, s: ana.step(c, s, True),
+         lambda c, k: ana.run_chunk(c, k, True), ana),
+        ("prometaphase", pro.step, pro.run_chunk, pro),
     ):
         store.set_stage(stage)
         carry = convert.mitotic_state_from_numpy(store.load_positions(0), 1, device)
@@ -144,8 +201,11 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
         step_ms = host_ms(one_step, repeats)
         window = profile_window(one_step, 50, step_ms)
         update = update_kernel_times(
-            carry[0], (pro if stage == "prometaphase" else ana).mobility,
-            config.mitotic_phase, config.interphase.relaxation_spacestep)
+            carry[0], model.mobility, config.mitotic_phase,
+            config.interphase.relaxation_spacestep)
+        terms = pro.mitotic_terms() if model is pro else ana.mitotic_terms(stage == "telophase")
+        chunked = chunk_steps(store.load_positions(0), chunk, terms, model,
+                              config.mitotic_phase, CHUNKS)
         # Same start, same seed, twice: `index_add_` sums bonds and triples
         # that share a bead in an order of its own choosing.
         twice = []
@@ -164,6 +224,7 @@ def mitotic_steps(store, config, x_interphase, device, repeats):
             "two_runs_steps": repeats,
             "top_device_kernels_ms_total_and_count": [
                 [name[:90], round(ms, 3), count] for name, (ms, count) in top],
+            "chunk_kernel": chunked,
         }
     return result
 

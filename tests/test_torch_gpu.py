@@ -734,3 +734,135 @@ def test_step_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         contact.contact_events(layout._replace(xyz=layout.xyz.double()), 0.24)
     with pytest.raises(ValueError):
         contact.contact_events(layout, 0.31)
+
+
+
+# -- the mitotic chunk kernel ---------------------------------------------------
+
+def _mitotic_phase(tmp_path, device, phase, **fields):
+    """(model, terms, start positions) of ``phase`` on ``device`` for a small
+    design, a 300- and a 200-bead chain with a centromere each,
+    coarse-grained by 10 (that of tests/test_torch_mitotic.py): rods for the
+    anaphase, rods next to the pole for the telophase; for the prometaphase
+    each target chromatid a walk of 0.3 steps, its sister 0.3 beside it."""
+    import json
+
+    from genome_cycle_tpu_torch.models.anatelophase import AnatelophaseModel
+    from genome_cycle_tpu_torch.models.prepare import run_prepare
+    from genome_cycle_tpu_torch.models.prometaphase import PrometaphaseModel
+    from genome_cycle_tpu_torch.store import MemoryStore
+
+    config = {"mitotic_phase": {"coarse_graining": 10, "kfiber_length_anaphase": 0.2,
+                                "kfiber_length_prometaphase": 0.1,
+                                "telophase_bond_spring_multiplier": 0.5,
+                                "telophase_bending_energy_multiplier": 2.0, **fields}}
+    (tmp_path / "config.json").write_text(json.dumps(config))
+    rows = ["chain\tstart\tend\tA\tB\ttags"]
+    for name, beads, cen in (("chr1:a", 300, (140, 160)), ("chr2:a", 200, (90, 110))):
+        for i in range(beads):
+            tag, a, b = ("cen,B", 0, 1) if cen[0] <= i < cen[1] else (
+                ("A", 1, 0) if i % 2 == 0 else ("B", 0, 1))
+            rows.append(f"{name}\t{i * 100000}\t{(i + 1) * 100000}\t{a}\t{b}\t{tag}")
+    (tmp_path / "chains.tsv").write_text("\n".join(rows) + "\n")
+    store = MemoryStore()
+    run_prepare(store, str(tmp_path / "config.json"), str(tmp_path / "chains.tsv"), seed=42,
+                log=lambda m: None)
+    rng = np.random.default_rng(7)
+    if phase != "prometaphase":
+        design = store.load_anatelophase_design()
+        model = AnatelophaseModel.from_design(design, store.load_config(), device)
+        x = model.initial_rods(rng, design.chains)
+        if phase == "telophase":
+            x = x + [0.0, 5.0, 0.0]
+        terms = model.mitotic_terms(phase == "telophase")
+    else:
+        design = store.load_prometaphase_design()
+        model = PrometaphaseModel.from_design(design, store.load_config(), device)
+        x = np.zeros((model.n, 3))
+        for target, sister in design.sister_chromatids:
+            t, s = design.chains[int(target)], design.chains[int(sister)]
+            steps = rng.normal(size=(t.end - t.start, 3))
+            walk = 0.3 * np.cumsum(steps / np.linalg.norm(steps, axis=1, keepdims=True), axis=0)
+            x[t.start:t.end] = walk - walk.mean(axis=0)
+            x[s.start:s.end] = x[t.start:t.end] - [0.0, 0.3, 0.0]
+        terms = model.mitotic_terms()
+    return model, terms, torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+MITOTIC_PHASES = [("anaphase", {}), ("telophase", {}), ("prometaphase", {}),
+                  ("prometaphase", {"polar_ejection_force": 40.0,
+                                    "polar_ejection_cross_section": 0.5})]
+MITOTIC_IDS = ["anaphase", "telophase", "prometaphase", "prometaphase-ejection"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase, fields", MITOTIC_PHASES, ids=MITOTIC_IDS)
+def test_mitotic_chunk_kernel_matches_plain_version_at_temperature_0(
+        cuda_device, tmp_path, phase, fields):
+    """200 steps in one launch against 200 plain steps on the card, within
+    1e-4 (coordinates of order 1 to 10, float32 sums in another order)."""
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    model, terms, x = _mitotic_phase(tmp_path, cuda_device, phase, temperature=0.0, **fields)
+    noise = torch.randn((200, model.n, 3), device=cuda_device)
+    before = mitotic.launch_chunk.launches
+    got = mitotic.run_chunk(x, terms, model.mobility, noise, 0.0, model.config.timestep)
+    want = mitotic.run_chunk_reference(x, terms.forces, model.mobility, noise, 0.0,
+                                       model.config.timestep)
+    torch.cuda.synchronize()
+    assert mitotic.launch_chunk.launches == before + 1
+    assert float((want - x).abs().max()) > 0.05
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase, fields", MITOTIC_PHASES, ids=MITOTIC_IDS)
+def test_mitotic_chunk_kernel_one_step_with_handed_in_noise(cuda_device, tmp_path, phase, fields):
+    """One step at temperature 1 on the same standard normals, within 1e-5."""
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    model, terms, x = _mitotic_phase(tmp_path, cuda_device, phase, temperature=1.0, **fields)
+    noise = torch.randn((1, model.n, 3), device=cuda_device)
+    got = mitotic.run_chunk(x, terms, model.mobility, noise, 1.0, model.config.timestep)
+    want = mitotic.run_chunk_reference(x, terms.forces, model.mobility, noise, 1.0,
+                                       model.config.timestep)
+    forces = mitotic.forces_from_terms_reference(x, terms)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((forces - terms.forces(x)).abs().max()) <= 1e-5 * float(forces.abs().max())
+
+
+@pytest.mark.gpu
+def test_mitotic_chunk_kernel_two_launches_are_bitwise_equal(cuda_device, tmp_path):
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    model, terms, x = _mitotic_phase(tmp_path, cuda_device, "prometaphase", temperature=1.0,
+                                     polar_ejection_force=40.0, polar_ejection_cross_section=0.5)
+    noise = torch.randn((500, model.n, 3), device=cuda_device)
+    runs = [mitotic.run_chunk(x, terms, model.mobility, noise, 1.0, 1e-4) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert float((runs[0] - x).abs().max()) > 0.01
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
+def test_mitotic_chunk_kernel_refuses_a_system_past_its_capacity(cuda_device, tmp_path):
+    """A system larger than the cluster's shared memory holds raises, with
+    the capacity in the message; so do other inputs the kernel does not take.
+    Nothing falls back to the plain version."""
+    from genome_cycle_tpu_torch.ops import mitotic
+
+    model, terms, x = _mitotic_phase(tmp_path, cuda_device, "anaphase")
+    n = mitotic.device_capacity(cuda_device) + 1
+    big = terms._replace(table=torch.zeros((n, 1, 4), dtype=torch.int32, device=cuda_device))
+    before = mitotic.launch_chunk.launches
+    with pytest.raises(ValueError, match="holds at most"):
+        mitotic.run_chunk(torch.zeros((n, 3), device=cuda_device), big,
+                          torch.ones(n, device=cuda_device),
+                          torch.zeros((2, n, 3), device=cuda_device), 1.0, 1e-4)
+    assert mitotic.launch_chunk.launches == before
+    noise = torch.zeros((2, model.n, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        mitotic.run_chunk(x.double(), terms, model.mobility, noise, 1.0, 1e-4)
+    with pytest.raises(ValueError):
+        mitotic.run_chunk(x, terms, model.mobility, noise.cpu(), 1.0, 1e-4)
