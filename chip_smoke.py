@@ -169,22 +169,22 @@ CONFIG_STORE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 600
                 "interphase": {"steps": 6000, "relaxation_steps": 2000,
                                "contactmap_output_window": 2}}
 STORE_RESUME_STEP = 2000
+# The hand-written kernels whose launches the port counts
+# (``launch.<kernel>``, ``genome_cycle_tpu_torch/utils/tracing.py``).
+KERNELS = ("ab_pair_forces", "contact_tick", "step_rest", "bd_update", "mitotic_chunk")
 # Runs a module as ``python -m`` does, then prints the launches of the pair
 # kernel and of the step kernels in that process (the counts a subprocess
 # cannot hand back otherwise).
 LAUNCHER = ("import json, runpy, sys\n"
-            "from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest\n"
-            "from genome_cycle_tpu_torch.ops import pair_kernels as pk\n"
+            "from genome_cycle_tpu_torch.utils import tracing\n"
             "sys.argv = sys.argv[1:]\n"
             "try:\n"
             "    runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n"
             "finally:\n"
-            "    print(f'launches {pk.ab_pair_forces.launches}', flush=True)\n"
-            "    print('step kernel launches ' + json.dumps({\n"
-            "        'contact_tick': contact.contact_events.launches,\n"
-            "        'step_rest': step_rest.launch_rest.launches,\n"
-            "        'bd_update': step_rest.launch_update.launches,\n"
-            "        'mitotic_chunk': mitotic.launch_chunk.launches}), flush=True)\n")
+            "    counts = {k: tracing.counters().get('launch.' + k, 0)\n"
+            f"              for k in {KERNELS!r}}}\n"
+            "    print(f\"launches {counts.pop('ab_pair_forces')}\", flush=True)\n"
+            "    print('step kernel launches ' + json.dumps(counts), flush=True)\n")
 # `--production`: the reference defaults (examples/config_production.json)
 # into a scratch directory outside the output directory, which keeps
 # summary.json, pc1.tsv, aux.json and the log.  G1 frames whose structures the
@@ -567,7 +567,6 @@ def run_ensemble(workdir, device, run_log):
     alone.  Returns what the checks and the timings need."""
     from genome_cycle_tpu_torch.models.anatelophase import run_anatelophase
     from genome_cycle_tpu_torch.models.transitions import transition_interphase
-    from genome_cycle_tpu_torch.ops import pair_kernels as pk
     from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
 
     stores = []
@@ -586,9 +585,9 @@ def run_ensemble(workdir, device, run_log):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
-    pk.ab_pair_forces.launches = 0
+    counted = kernel_launches()
     final = run_ensemble_interphase(stores, log=run_log, device=device, timings=timings)
-    launches = pk.ab_pair_forces.launches
+    launches = kernel_launches(counted)["ab_pair_forces"]
     peak_bytes = torch.cuda.max_memory_allocated()
 
     config = stores[0].load_config()
@@ -1204,7 +1203,7 @@ def run_shards(workdir, design, config, x_relaxed, device):
                                   cells=layout.num_cells, launches=launches))
 
 
-def run_gate(device, pk):
+def run_gate(device):
     """Phase "gate": the port's statistical gate against the C++ surrogate
     (``tests/test_torch_correlation.py``), both configurations, each as one
     stacked run of all its replicas through the kernel, with the surrogate
@@ -1217,7 +1216,7 @@ def run_gate(device, pk):
     phase("gate", f"g++: {version}")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_correlation as gate
-    from genome_cycle_tpu_torch.ops import _build, step_rest
+    from genome_cycle_tpu_torch.ops import _build
 
     exe = _build.build_dir() / "surrogate_ref"
     exe.parent.mkdir(parents=True, exist_ok=True)
@@ -1226,15 +1225,14 @@ def run_gate(device, pk):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_gate_")
     try:
         for name, run in (("chain", gate.contact_map_gate), ("nucleolus", gate.nucleolus_gate)):
-            before = pk.ab_pair_forces.launches
-            rest_before = step_rest.launch_rest.launches
+            counted = kernel_launches()
             try:
                 numbers, seconds = synchronized(
                     lambda: run(exe, pathlib.Path(tempfile.mkdtemp(dir=workdir)), device))
             except AssertionError:
                 fail("gate", f"{name}: {traceback.format_exc().splitlines()[-2].strip()}")
-            launches = pk.ab_pair_forces.launches - before
-            rest_launches = step_rest.launch_rest.launches - rest_before
+            since = kernel_launches(counted)
+            launches, rest_launches = since["ab_pair_forces"], since["step_rest"]
             phase("gate", f"{name}: " + ", ".join(f"{k} {v:.5g}" for k, v in numbers.items())
                           + f"; {launches} pair-kernel and {rest_launches} rest-kernel launches "
                           f"for {gate.STEPS} steps of "
@@ -1686,24 +1684,13 @@ STEP_KERNELS = {
 }
 
 
-def step_launches():
-    """The launches the step kernels' wrappers (and the mitotic chunk
-    kernel's) have counted in this process."""
-    from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest
+def kernel_launches(since=None):
+    """The launches of each of :data:`KERNELS` that the port's wrappers have
+    counted in this process, or their increase since the counts ``since``."""
+    from genome_cycle_tpu_torch.utils import tracing
 
-    return {"contact_tick": contact.contact_events.launches,
-            "step_rest": step_rest.launch_rest.launches,
-            "bd_update": step_rest.launch_update.launches,
-            "mitotic_chunk": mitotic.launch_chunk.launches}
-
-
-def set_step_launches(counts):
-    from genome_cycle_tpu_torch.ops import contact, mitotic, step_rest
-
-    contact.contact_events.launches = counts["contact_tick"]
-    step_rest.launch_rest.launches = counts["step_rest"]
-    step_rest.launch_update.launches = counts["bd_update"]
-    mitotic.launch_chunk.launches = counts["mitotic_chunk"]
+    counts = tracing.counters()
+    return {k: counts.get("launch." + k, 0) - (since or {}).get(k, 0) for k in KERNELS}
 
 
 def device_launches(fn, calls):
@@ -1763,7 +1750,6 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
 
     c = model.config
     name = f"step kernels: {label}"
-    counts = step_launches()
     # -- the tick, with a fresh capacity and with one it must outgrow --------
     layout = model.cell_layout(x)
     cutoff = c.contactmap_distance * core
@@ -1781,10 +1767,10 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     if not torch.equal(pair_keys(first), keys):
         fail(name, "the tick kernel's first version lists other pairs than the plain search")
     for rows in (None, TICK_FORCED_ROWS):
-        before = contact.contact_events.launches
+        counted = kernel_launches()
         capacity = contact.EventCapacity(rows)
         got = contact.contact_events(layout, cutoff, capacity=capacity)
-        runs = contact.contact_events.launches - before
+        runs = kernel_launches(counted)["contact_tick"]
         equal = torch.equal(pair_keys(got), keys)
         phase(name, f"tick: {len(got)} pairs at cutoff {cutoff:.4f}, the plain search "
                     f"{len(want)}; sets equal: {equal}; capacity {rows or 16 * layout.n} -> "
@@ -1861,7 +1847,6 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
             and ds <= STEP_TOLERANCE * float(plain_semi.abs().max())):
         fail(name, "the fused G1 launch differs from the plain composition")
     step_errors.max_abs["step_rest"] = max(step_errors.max_abs["step_rest"], dx)
-    set_step_launches(counts)                   # checks do not count
     if not time_them:
         return None
 
@@ -1895,7 +1880,6 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
         x, f_p, model.mobility, noise, c.temperature, dt, c.relaxation_spacestep), 20)
     update_plain_ms = time_ms(
         lambda: bd_update_reference(x, f_p, model.mobility, None, relax, noise=noise), 5)
-    set_step_launches(counts)
     rest_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + REST_SHARED_BYTES_PER_BEAD) * n
                   + 4 * bonds.nucleolar.table.numel()) / PEAK_BYTES_PER_S * 1e3
     update_bytes = ((STEP_BYTES_PER_REPLICA_BEAD * replicas + UPDATE_SHARED_BYTES_PER_BEAD) * n
@@ -1955,7 +1939,6 @@ def zero_temperature_steps(model, x0, semiaxes0):
     twin_model = InterphaseModel(c, {name: getattr(model, name).cpu().numpy()
                                      for name in ARRAY_FIELDS}, model.settings, x0.device)
     twin_model.bound = model.bound + model.cell / 3
-    counts = step_launches()
     generator = torch.Generator(device=x0.device)
     kernels = twin = (x0, generator, semiaxes0)
     plain = (x0, semiaxes0)
@@ -1968,7 +1951,6 @@ def zero_temperature_steps(model, x0, semiaxes0):
                                            / semi_p.abs().max()))
         plain = plain_step(*plain, step)
         twin = twin_model._bd_step4(twin, step)
-    set_step_launches(counts)
     moved = float((kernels[0] - x0).abs().max())
     apart = float((plain[0] - kernels[0]).abs().max())
     twin_apart = float((twin[0] - kernels[0]).abs().max())
@@ -2010,7 +1992,6 @@ def step_launch_counts(model, x, semiaxes, step0, generator):
     card, at positions ``x`` (torch.profiler)."""
     c = model.config
     state = [(x, generator, semiaxes)]
-    counts = step_launches()
 
     def g1():
         state[0] = model._bd_step4(state[0], step0)
@@ -2020,7 +2001,6 @@ def step_launch_counts(model, x, semiaxes, step0, generator):
 
     result = {"g1_step": device_launches(g1, 20), "relaxation_step": device_launches(relax, 20),
               "tick": device_launches(lambda: model.contact_events_tick(x, step0), 5)}
-    set_step_launches(counts)
     phase("step kernels", f"device launches: a G1 step {result['g1_step']:.1f}, a relaxation "
                           f"step {result['relaxation_step']:.1f}, a tick (layout and search) "
                           f"{result['tick']:.1f} (torch.profiler)")
@@ -2173,7 +2153,6 @@ def check_mitotic_kernel(starts, statistics=True):
     phase's numbers."""
     from genome_cycle_tpu_torch.ops import mitotic
 
-    counts = step_launches()
     results = {}
     for stage, start in starts.items():
         name = f"mitotic kernel: {stage}"
@@ -2256,7 +2235,6 @@ def check_mitotic_kernel(starts, statistics=True):
             max_abs_err_t0=cold, moved_t0=moved, max_abs_err_one_step=step_err,
             table_rel_err=table_err, bitwise=bitwise,
             statistics=mitotic_statistics(name, start) if statistics else None)
-    set_step_launches(counts)                 # checks and timings do not count
     return results
 
 
@@ -2368,8 +2346,7 @@ def main():
     run_log = lambda m: phase("run", m.replace("\t", " "))
     try:
         torch.cuda.reset_peak_memory_stats()
-        pk.ab_pair_forces.launches = 0
-        set_step_launches(dict.fromkeys(step_launches(), 0))
+        counted = kernel_launches()
         timings = {}
         phase("depth", f"cut to {json.dumps(CONFIG)}; second cell {json.dumps(CONFIG_NEXT)}")
         store, config = prepare_nucleus(workdir, device, timings)
@@ -2385,8 +2362,8 @@ def main():
         final = run_interphase(store, log=run_log, device=device, timings=timings)
         transition_prometaphase(store, log=run_log)
         metaphase = run_prometaphase(store, log=run_log, device=device, timings=timings)
-        launches = pk.ab_pair_forces.launches
-        main_step_launches = step_launches()
+        main_step_launches = kernel_launches(counted)
+        launches = main_step_launches["ab_pair_forces"]
         peak_bytes = torch.cuda.max_memory_allocated()
 
         # ---- what the cycle wrote -------------------------------------------
@@ -2497,7 +2474,6 @@ def main():
                       f"{all_ops_ms:.5f} with every candidate evaluated in full)")
     timed[f"ensemble of {REPLICAS} after G1"] = check_ensemble_kernel(
         ensemble, device, pk, errors)
-    pk.ab_pair_forces.launches = launches  # timing launches do not count
 
     # ---- 3c. the step kernels against their plain versions, full width -------
     step_errors = StepErrors()
@@ -2534,7 +2510,6 @@ def main():
     zero_temperature_steps(cold, x_dev["59,610 beads after relaxation"], semi_init)
     counted = step_launch_counts(model, x_dev["59,610 beads after G1"], semi_final, steps,
                                  torch.Generator(device=device))
-    set_step_launches(main_step_launches)
 
     # ---- 3d. the mitotic chunk kernel at the phases' start structures -------
     mitotic_timed = check_mitotic_kernel(starts)
@@ -2550,8 +2525,6 @@ def main():
         shutil.rmtree(shard_dir, ignore_errors=True)
     errors.max_abs = max(errors.max_abs, shards["kernel_max_abs_err"])
     timed[f"rank 0's local layout, {SHARD_RANKS} ranks"] = shards["local_layout"]
-    pk.ab_pair_forces.launches = launches  # timing launches do not count
-    set_step_launches(main_step_launches)
 
     g1 = timings["g1_seconds"]
     rate = timings["g1_steps"] / g1
@@ -2593,9 +2566,7 @@ def main():
         shutil.rmtree(store_dir, ignore_errors=True)
 
     # ---- 10. the statistical gate through the kernel ------------------------
-    gate = run_gate(device, pk)
-    pk.ab_pair_forces.launches = launches  # the gate's launches do not count
-    set_step_launches(main_step_launches)
+    gate = run_gate(device)
 
     main_shape = timed["after G1"]
     phase("time", f"whole script, build included: {time.perf_counter() - started:.1f} s "

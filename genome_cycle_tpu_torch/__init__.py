@@ -27,7 +27,8 @@ Layout (same module and function names as the JAX package):
 - :mod:`genome_cycle_tpu_torch.analysis`  — cool, dephase, pc1 (on the device),
   nci, annotate, dumpgsd and their helpers
 - :mod:`genome_cycle_tpu_torch.convert`   — model/state from numpy arrays
-- :mod:`genome_cycle_tpu_torch.utils`     — splines, logging
+- :mod:`genome_cycle_tpu_torch.utils`     — splines, logging, the spans and
+  counters of ``utils/tracing.py``
 """
 
 __version__ = "0.1.0"

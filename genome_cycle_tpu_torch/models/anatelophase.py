@@ -46,6 +46,7 @@ from ..ops.bonded import (
 )
 from ..ops.integrator import BDParams, bd_update
 from ..ops.neighbor import pairwise_forces_dense
+from ..utils import tracing
 from ..utils.logging import progress_line
 
 # Arrays of the model, under the field names of the JAX dataclass.
@@ -234,17 +235,25 @@ def run_stage_phase(store, stage, steps, m, chunk_fn, energy_fn, state, log,
 
     def clock():
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with tracing.sync("clock"):
+                torch.cuda.synchronize(device)
         return _time.perf_counter()
 
     def sample(step, x):
-        store.save_positions(step, x.detach().cpu().numpy())
-        store.append_frame(step)
+        with tracing.span("mitotic.frame"):
+            with tracing.sync("mitotic_frame"):
+                positions = x.detach().cpu().numpy()
+            store.save_positions(step, positions)
+            store.append_frame(step)
+
+    def energy(x):
+        with tracing.sync("mitotic_energy"):
+            return energy_fn(x)
 
     store.set_stage(stage)
     store.clear_frames()
     sample(0, state[0])
-    log(progress_line(stage, 0, energy=energy_fn(state[0])))
+    log(progress_line(stage, 0, energy=energy(state[0])))
     t0 = clock()
     n_chunks = steps // m.sampling_interval
     for chunk in range(n_chunks):
@@ -252,7 +261,7 @@ def run_stage_phase(store, stage, steps, m, chunk_fn, energy_fn, state, log,
         step = (chunk + 1) * m.sampling_interval
         sample(step, state[0])
         if step % m.logging_interval == 0:
-            log(progress_line(stage, step, energy=energy_fn(state[0])))
+            log(progress_line(stage, step, energy=energy(state[0])))
     if timings is not None:
         timings[f"{stage}_seconds"] = clock() - t0
         timings[f"{stage}_steps"] = n_chunks * m.sampling_interval

@@ -55,6 +55,7 @@ from ..ops.neighbor import pairwise_forces_dense
 from ..ops.pair_kernels import ab_pair_forces, build_cell_layout
 from ..ops.step_rest import BondRows, NucleolarRows, UpdateRows, WallRows
 from ..ops.wall import wall_forces
+from ..utils import tracing
 from ..utils.logging import progress_line
 
 
@@ -405,6 +406,7 @@ class InterphaseModel(nn.Module):
         )
         return (x, generator, semiaxes)
 
+    @tracing.traced("g1.step")
     @torch.no_grad()
     def _bd_step4(self, carry, step: int, noise=None):
         """Forces at lagged scales, BD update, wall ODE — everything except
@@ -428,6 +430,7 @@ class InterphaseModel(nn.Module):
                               self.wall_rows(semiaxes, core_scale), self.update_rows(noise))
         return (rest.out, generator, rest.semiaxes)
 
+    @tracing.traced("tick")
     @torch.no_grad()
     def contact_events_tick(self, x, step: int):
         """Fresh spatial search at a tick step -> contact events.
@@ -463,7 +466,7 @@ class WindowAccumulator:
     grows past the watermark with headroom and the merge is run again.
     ``events`` counts the events folded into the current window (their
     number is known on the host: it costs no sync); a window's counts sum to
-    it."""
+    it.  A merge run again counts ``window.merge_reruns``."""
 
     def __init__(self, particles: int, capacity: Optional[int], device, log=print):
         self.capacity = capacity or max(1 << 16, 16 * particles)
@@ -472,6 +475,7 @@ class WindowAccumulator:
         self.acc, self.rows = empty_window_acc(self.capacity, device)
         self.events = 0
 
+    @tracing.traced("merge")
     def add(self, events):
         while True:
             acc, rows, overflow = merge_events_acc(self.acc, self.rows, events)
@@ -483,11 +487,14 @@ class WindowAccumulator:
             self.log(f"engine: growing window accumulator to {self.capacity}")
             grown, _ = empty_window_acc(self.capacity, self.device)
             self.acc = torch.cat([self.acc, grown[self.acc.shape[0]:]])
+            tracing.count("window.merge_reruns")
 
+    @tracing.traced("dump")
     def take(self) -> np.ndarray:
         """The window's sorted (i, j, count) rows on the host; the window
         starts afresh."""
-        coo = self.acc[: self.rows].cpu().numpy()
+        with tracing.sync("take"):
+            coo = self.acc[: self.rows].cpu().numpy()
         self.acc, self.rows = empty_window_acc(self.capacity, self.device)
         self.events = 0
         return coo
@@ -501,14 +508,18 @@ def save_g1_frame(store, model: InterphaseModel, step: int, x, semiaxes, contact
     window's contacts.  Returns the context."""
     t = step * model.config.timestep
     core, bond = model.scales(t)
+    with tracing.sync("frame_context"):
+        wall = tuple(float(v) for v in semiaxes.detach().cpu().numpy())
     ctx = InterphaseContext(
         time=t,
-        wall_semiaxes=tuple(float(v) for v in semiaxes.detach().cpu().numpy()),
+        wall_semiaxes=wall,
         core_scale=float(core),
         bond_scale=float(bond),
         mean_energy=mean_energy,
     )
-    store.save_positions(step, x.detach().cpu().numpy())
+    with tracing.sync("frame_positions"):
+        positions = x.detach().cpu().numpy()
+    store.save_positions(step, positions)
     store.save_interphase_context(step, ctx)
     if contacts_coo is not None and len(contacts_coo):
         store.save_contacts(step, contacts_coo)
@@ -563,14 +574,18 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
 
     def clock():
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with tracing.sync("clock"):
+                torch.cuda.synchronize(device)
         return _time.perf_counter()
 
-    def to_host(tensor):
-        return tensor.detach().cpu().numpy()
+    def to_host(tensor, site):
+        with tracing.sync(site):
+            return tensor.detach().cpu().numpy()
 
     def refresh_bound(x):
-        if model.update_bound(float(x.abs().max())):
+        with tracing.sync("refresh_bound"):
+            extent = float(x.abs().max())
+        if model.update_bound(extent):
             log(f"engine: grid bound -> {model.bound:g}")
 
     semiaxes0 = torch.as_tensor(c.wall_semiaxes_init, dtype=dtype, device=device)
@@ -578,7 +593,9 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     def mean_energy(x, t, semiaxes):
         core, bond = model.scales(t)
         with torch.no_grad():
-            return float(model.total_energy(x, core, bond, semiaxes)) / n
+            energy = model.total_energy(x, core, bond, semiaxes)
+        with tracing.sync("frame_energy"):
+            return float(energy) / n
 
     # ---- relaxation phase --------------------------------------------------
     store.set_stage("relaxation")
@@ -591,14 +608,14 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     def relax_context(x):
         return InterphaseContext(
             time=0.0,
-            wall_semiaxes=tuple(float(v) for v in to_host(semiaxes0)),
+            wall_semiaxes=tuple(float(v) for v in to_host(semiaxes0, "frame_context")),
             core_scale=c.core_scale_init,
             bond_scale=c.bond_scale_init,
             mean_energy=mean_energy(x, 0.0, semiaxes0),
         )
 
     ctx = relax_context(x)
-    store.save_positions(0, to_host(x))
+    store.save_positions(0, to_host(x, "frame_positions"))
     store.save_interphase_context(0, ctx)
     store.append_frame(0)
     log(progress_line("relaxation", 0, t=0.0, energy=ctx.mean_energy))
@@ -613,7 +630,7 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
         x = state[0]
         refresh_bound(x)
         ctx = relax_context(x)
-        store.save_positions(step, to_host(x))
+        store.save_positions(step, to_host(x, "frame_positions"))
         store.save_interphase_context(step, ctx)
         store.append_frame(step)
         log(progress_line("relaxation", step, t=0.0, energy=ctx.mean_energy))
@@ -694,46 +711,47 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     for chunk in range(resume_step // sampling, n_chunks):
         start = chunk * sampling
         state = model.g1_chunk(state, start, sampling, window)
-        x, _, semiaxes = state
-        refresh_bound(x)
-        step = start + sampling
+        with tracing.span("g1.frame"):
+            x, _, semiaxes = state
+            refresh_bound(x)
+            step = start + sampling
 
-        contacts_coo = None
-        if step % window_steps == 0:
-            events, capacity = window.events, window.capacity
-            contacts_coo = window.take()
-            t_now = clock()
-            dumped(step, contacts_coo, events, capacity, t_now - t_window)
-            t_window = t_now
+            contacts_coo = None
+            if step % window_steps == 0:
+                events, capacity = window.events, window.capacity
+                contacts_coo = window.take()
+                t_now = clock()
+                dumped(step, contacts_coo, events, capacity, t_now - t_window)
+                t_window = t_now
 
-        ctx = save_frame(step, x, semiaxes, contacts_coo)
-        steps_done += sampling
-        if step % c.logging_interval == 0:
-            rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
-            log(
-                progress_line(
-                    "interphase", step, t=step * c.timestep,
-                    energy=ctx.mean_energy,
-                    radius=float(np.cbrt(np.prod(to_host(semiaxes)))),
+            ctx = save_frame(step, x, semiaxes, contacts_coo)
+            steps_done += sampling
+            if step % c.logging_interval == 0:
+                rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
+                log(
+                    progress_line(
+                        "interphase", step, t=step * c.timestep,
+                        energy=ctx.mean_energy,
+                        radius=float(np.cbrt(np.prod(to_host(semiaxes, "log_radius")))),
+                    )
+                    + f"\t{rate:.1f} steps/s ({rate * n:.3g} bead-steps/s)"
                 )
-                + f"\t{rate:.1f} steps/s ({rate * n:.3g} bead-steps/s)"
-            )
 
-        # Snapshot the step state at window boundaries (contact windows are
-        # flushed there, so a resume never double-counts contacts).
-        if contacts_coo is not None:
-            store.save_checkpoint(
-                step,
-                {
-                    "positions": to_host(x),
-                    "semiaxes": to_host(semiaxes),
-                    "key": generator.get_state().numpy(),
-                },
-            )
+            # Snapshot the step state at window boundaries (contact windows are
+            # flushed there, so a resume never double-counts contacts).
+            if contacts_coo is not None:
+                store.save_checkpoint(
+                    step,
+                    {
+                        "positions": to_host(x, "checkpoint"),
+                        "semiaxes": to_host(semiaxes, "checkpoint"),
+                        "key": generator.get_state().numpy(),
+                    },
+                )
     if timings is not None:
         timings["g1_seconds"] = clock() - t_g1
         timings["g1_steps"] = steps_done
         timings["grid_bound"] = model.bound
 
     store.clear_checkpoint()
-    return to_host(state[0])
+    return to_host(state[0], "final")

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils import tracing
 from .pair_kernels import CellLayout, _check_layout, expand_ranges, stencil_ranges
 
 # Sentinel id for empty accumulator rows: sorts after every real bead id, so
@@ -90,12 +91,14 @@ def events_with_capacity(search, capacity: EventCapacity):
     """``search(rows) -> (buffer (rows, 3), count)`` run with the capacity's
     rows, and again with more rows as long as the count exceeds them (the
     search must be a pure function of its inputs: a rerun is exact).
-    Returns the buffer's first ``count`` rows."""
+    Returns the buffer's first ``count`` rows.  Each search run again counts
+    ``contact.tick_reruns``."""
     while True:
         buffer, count = search(capacity.rows)
         if count <= capacity.rows:
             return buffer[:count]
         capacity.grow(count)
+        tracing.count("contact.tick_reruns")
 
 
 def _tick_entry_point(name: str):
@@ -126,7 +129,7 @@ def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffe
     if status != 0:
         raise RuntimeError(f"contact tick kernel launch failed: CUDA error {status}")
     if not first_version:
-        contact_events.launches += 1
+        tracing.count("launch.contact_tick")
 
 
 def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int,
@@ -137,7 +140,8 @@ def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows:
     count = torch.zeros(1, dtype=torch.int32, device=device)
     buffer = torch.empty((rows, 3), dtype=torch.int32, device=device)
     _tick_launch(layout, cutoff2, begin, end, buffer, count, first_version)
-    return buffer, int(count.item()) & 0xFFFFFFFF
+    with tracing.sync("tick_count"):
+        return buffer, int(count.item()) & 0xFFFFFFFF
 
 
 def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
@@ -178,9 +182,6 @@ def _contact_events_launched(layout: CellLayout, cutoff: float, begin: int = 0, 
         lambda rows: _tick_search(layout, cutoff2, begin, end, rows, first_version), capacity)
 
 
-# Kernel launches made by this process (reruns after an overflow included).
-contact_events.launches = 0
-
 
 def merge_contact_events(keys: np.ndarray, weights: np.ndarray):
     """Sum weights of duplicate uint64 keys; returns (sorted unique keys,
@@ -195,7 +196,11 @@ def merge_contact_events(keys: np.ndarray, weights: np.ndarray):
 def events_to_host(events) -> tuple:
     """(E, 3) events -> (i, j, count) numpy arrays with i < j, in the shape
     :func:`merge_window` expects.  Rows with i < 0 are padding and dropped."""
-    ev = events.detach().cpu().numpy() if isinstance(events, torch.Tensor) else np.asarray(events)
+    if isinstance(events, torch.Tensor):
+        with tracing.sync("events_to_host"):
+            ev = events.detach().cpu().numpy()
+    else:
+        ev = np.asarray(events)
     ev = ev.reshape(-1, 3)
     keep = ev[:, 0] >= 0
     a = ev[keep, 0].astype(np.int64)
@@ -267,7 +272,8 @@ def merge_events_acc(acc, acc_n: int, events):
     """
     cap = acc.shape[0]
     ev = events.reshape(-1, 3).to(torch.int64)
-    ev = ev[ev[:, 0] >= 0]
+    with tracing.sync("merge_pad"):
+        ev = ev[ev[:, 0] >= 0]
     lo = torch.minimum(ev[:, 0], ev[:, 1])
     hi = torch.maximum(ev[:, 0], ev[:, 1])
     live = acc[:acc_n].to(torch.int64)
@@ -275,7 +281,8 @@ def merge_events_acc(acc, acc_n: int, events):
     counts = torch.cat([live[:, 2], ev[:, 2]])
 
     keys, perm = torch.sort(keys)
-    uniq, inverse = torch.unique_consecutive(keys, return_inverse=True)
+    with tracing.sync("merge_unique"):
+        uniq, inverse = torch.unique_consecutive(keys, return_inverse=True)
     sums = torch.zeros_like(uniq).index_add_(0, inverse, counts[perm])
 
     n_unique = int(uniq.shape[0])

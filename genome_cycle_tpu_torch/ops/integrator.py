@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import step_rest
+from ..utils import tracing
 
 
 class BDParams(NamedTuple):
@@ -34,6 +35,7 @@ class BDParams(NamedTuple):
     spacestep: Optional[float] = None
 
 
+@tracing.traced("noise")
 def standard_normal(positions, generator):
     """The update's standard normals, of the positions' shape: (N, 3) from
     one ``generator``, or (R, N, 3) from a sequence of R, replica r drawing

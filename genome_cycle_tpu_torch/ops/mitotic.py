@@ -28,6 +28,7 @@ import torch
 from . import _build
 from .integrator import BDParams, bd_update_reference
 from .pair_kernels import _check_tensor
+from ..utils import tracing
 
 # Slot kinds of the term table (the source's kBond ... kFiber): {kind, a, b, c}.
 BOND, TRIPLE_I, TRIPLE_J, TRIPLE_K, FIBER = 1, 2, 3, 4, 5
@@ -250,6 +251,7 @@ def _check_chunk_inputs(x, mobility, noise):
     _check_tensor("noise", noise, torch.float32, (noise.shape[0], n, 3), device, 4)
 
 
+@tracing.traced("mitotic.chunk")
 def run_chunk(x, terms: MitoticTerms, mobility, noise, temperature: float, timestep: float):
     """K = ``noise.shape[0]`` Brownian steps of the system at ``x`` (N, 3)
     float32 under ``terms``, step k with the standard normals ``noise[k]``;
@@ -379,9 +381,5 @@ def launch_chunk(x, terms: MitoticTerms, mobility, noise, temperature: float, ti
                                           torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"mitotic_chunk kernel launch failed: CUDA error {status}")
-    launch_chunk.launches += 1
+    tracing.count("launch.mitotic_chunk")
     return out
-
-
-# Kernel launches made by this process (see pair_kernels.ab_pair_forces.launches).
-launch_chunk.launches = 0

@@ -34,6 +34,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from . import _build
+from ..utils import tracing
 
 
 class CellLayout(NamedTuple):
@@ -81,6 +82,7 @@ def grid_dims(bound: float, cell: float) -> int:
     return max(int(math.ceil(2.0 * bound / cell)), 1)
 
 
+@tracing.traced("layout")
 def build_cell_layout(positions, af, bf, bound: float, cell: float, valid=None) -> CellLayout:
     """Sort beads into the cells of the cubic grid over [-bound, bound]^3.
 
@@ -362,6 +364,7 @@ def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False, begi
     return forces, per_bead
 
 
+@tracing.traced("pair")
 def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False,
                    begin: int = 0, end=None, per_bead: bool = False):
     """A/B pair force (and optionally its energy) over a cell layout.
@@ -384,16 +387,12 @@ def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False,
     if layout.xyz.device.type != "cuda":
         return ab_pair_forces_reference(layout, params, with_energy, begin, end, per_bead)
     forces, energies = _launch(layout, params, with_energy or per_bead, begin=begin, end=end)
-    ab_pair_forces.launches += 1
+    tracing.count("launch.ab_pair_forces")
     if per_bead:
         return forces, energies
     energy = energies.sum() if with_energy else forces.new_zeros(())
     return forces, energy
 
-
-# Kernel launches made by this process; a run reads it to show that its path
-# went through the kernel.
-ab_pair_forces.launches = 0
 
 
 def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: bool = False):
@@ -403,14 +402,10 @@ def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: boo
     run it: the card smoke test and the step profile time the kernel above
     against it within one run."""
     forces_sorted, per_bead = _launch(layout, params, with_energy, thread_per_bead=True)
-    _ab_pair_forces_thread_per_bead.launches += 1
     forces = torch.empty_like(forces_sorted)
     forces[layout.order] = forces_sorted
     energy = per_bead.sum() if with_energy else forces.new_zeros(())
     return forces, energy
-
-
-_ab_pair_forces_thread_per_bead.launches = 0
 
 
 def candidate_pairs(layout: CellLayout) -> int:

@@ -31,6 +31,7 @@ from . import wall as wall_ops
 from .bonded import pair_bond_forces, shift_bond_forces
 from .neighbor import pairwise_forces_dense
 from .pair_kernels import _check_tensor
+from ..utils import tracing
 
 _SUMS = 5   # reaction x, y, z; bonded energy; wall energy (the source's kSums)
 _NUC_ROWS = 256      # the source's kNucRows and kNucTable: what a block stages
@@ -325,16 +326,13 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
         status = lib.step_rest_launch(ctypes.byref(args), stream)
     if status != 0:
         raise RuntimeError(f"step_rest kernel launch failed: CUDA error {status}")
-    launch_rest.launches += 1
+    tracing.count("launch.step_rest")
     if energy is None:
         bonded_energy = wall_energy = 0.0
     else:
         bonded_energy, wall_energy = energy.sum(dim=0).unbind()
     return RestResult(out, reaction, bonded_energy, wall_energy, semiaxes_out)
 
-
-# Kernel launches made by this process (see ab_pair_forces.launches).
-launch_rest.launches = 0
 
 
 def chain_bonds_reference(positions, bonds: BondRows):
@@ -425,6 +423,7 @@ def rest_reference(positions, forces=None, bonds: Optional[BondRows] = None,
     return RestResult(out, reaction, bonded_energy, wall_energy, semiaxes)
 
 
+@tracing.traced("rest")
 def rest(positions, forces=None, bonds: Optional[BondRows] = None,
          wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
          with_energy: bool = False) -> RestResult:
@@ -471,8 +470,5 @@ def launch_update(positions, forces, mobility, noise, temperature: float, timest
         )
     if status != 0:
         raise RuntimeError(f"bd_update kernel launch failed: CUDA error {status}")
-    launch_update.launches += 1
+    tracing.count("launch.bd_update")
     return out
-
-
-launch_update.launches = 0

@@ -50,6 +50,7 @@ from ..models.interphase import (
 )
 from ..ops.contact import events_to_host, merge_window, split_window
 from ..store import InterphaseContext
+from ..utils import tracing
 from ..utils.logging import progress_line
 from .mesh import mesh_device
 
@@ -121,19 +122,23 @@ def run_ensemble_interphase(
 
     def clock():
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with tracing.sync("clock"):
+                torch.cuda.synchronize(device)
         return _time.perf_counter()
 
-    def to_host(tensor):
-        return tensor.detach().cpu().numpy()
+    def to_host(tensor, site):
+        with tracing.sync(site):
+            return tensor.detach().cpu().numpy()
 
     def refresh_bound(x):
         # One grid for all replicas: it spans the widest of them.
-        if model.update_bound(float(x.abs().max())):
+        with tracing.sync("refresh_bound"):
+            extent = float(x.abs().max())
+        if model.update_bound(extent):
             log(f"engine: grid bound -> {model.bound:g}")
 
     def save_frames(step, x, semiaxes, t, core, bond, windows=None):
-        positions, axes = to_host(x), to_host(semiaxes)
+        positions, axes = to_host(x, "frame_positions"), to_host(semiaxes, "frame_context")
         for k, store in enumerate(stores):
             store.save_positions(step, positions[k])
             store.save_interphase_context(step, InterphaseContext(
@@ -225,32 +230,33 @@ def run_ensemble_interphase(
     for chunk in range(resume_step // sampling, c.steps // sampling):
         start = chunk * sampling
         state = model.g1_chunk(state, start, sampling, window)
-        x, _, semiaxes = state
-        refresh_bound(x)
-        step = start + sampling
-        t = step * c.timestep
-        core, bond = model.scales(t)
-        dump = step % window_steps == 0
-        windows = split_window(window.take(), n, r) if dump else None
-        save_frames(step, x, semiaxes, t, core, bond, windows)
-        steps_done += sampling
+        with tracing.span("g1.frame"):
+            x, _, semiaxes = state
+            refresh_bound(x)
+            step = start + sampling
+            t = step * c.timestep
+            core, bond = model.scales(t)
+            dump = step % window_steps == 0
+            windows = split_window(window.take(), n, r) if dump else None
+            save_frames(step, x, semiaxes, t, core, bond, windows)
+            steps_done += sampling
 
-        if dump:
-            positions, axes = to_host(x), to_host(semiaxes)
-            for k, store in enumerate(stores):
-                store.save_checkpoint(step, {
-                    "positions": positions[k],
-                    "semiaxes": axes[k],
-                    "key": generators[k].get_state().numpy(),
-                })
-        if step % c.logging_interval == 0:
-            rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
-            log(progress_line("interphase", step, t=t)
-                + f"\t{r} replicas\t{rate:.1f} steps/s ({rate * r * n:.3g} bead-steps/s)")
+            if dump:
+                positions, axes = to_host(x, "checkpoint"), to_host(semiaxes, "checkpoint")
+                for k, store in enumerate(stores):
+                    store.save_checkpoint(step, {
+                        "positions": positions[k],
+                        "semiaxes": axes[k],
+                        "key": generators[k].get_state().numpy(),
+                    })
+            if step % c.logging_interval == 0:
+                rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
+                log(progress_line("interphase", step, t=t)
+                    + f"\t{r} replicas\t{rate:.1f} steps/s ({rate * r * n:.3g} bead-steps/s)")
     if timings is not None:
         timings["g1_seconds"] = clock() - t_g1
         timings["g1_steps"] = steps_done
 
     for store in stores:
         store.clear_checkpoint()
-    return to_host(state[0])
+    return to_host(state[0], "final")

@@ -6,8 +6,9 @@ multi-device paths and returns plain host values, which ``spawn`` hands back
 to the parent by rank.  They live in the package so that a rank imports only
 the package (``spawn`` pickles a function by its module and name).  Every
 result says which rank made it, how many times that rank launched the pair
-kernel (the functions that drive a path set the count to 0 just before), and whether
-JAX or the JAX package were loaded in it.
+kernel while it drove the path (the ``launch.ab_pair_forces`` counter's
+increase from just before), and whether JAX or the JAX package were loaded
+in it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.interphase import InterphaseModel, run_interphase
-from ..ops import pair_kernels as pk
+from ..utils import tracing
 from . import halo, mesh as mesh_ops, sharded
 from .ensemble import replica_share, run_ensemble_interphase
 
@@ -28,9 +29,15 @@ def _foreign_modules() -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "genome_cycle_tpu"))
 
 
-def _result(mesh, **values) -> dict:
+def _pair_launches() -> int:
+    return tracing.counters().get("launch.ab_pair_forces", 0)
+
+
+def _result(mesh, launched_from: int = 0, **values) -> dict:
+    """The rank's result; ``launches`` counts the pair kernel's launches
+    since the count ``launched_from``."""
     return dict(rank=mesh.rank, replica=mesh.replica, shard=mesh.shard, device=str(mesh.device),
-                backend=mesh.backend, launches=pk.ab_pair_forces.launches,
+                backend=mesh.backend, launches=_pair_launches() - launched_from,
                 foreign_modules=_foreign_modules(), **values)
 
 
@@ -72,10 +79,10 @@ def halo_g1(n_replicas, config, design, x, semiaxes, seeds, settings=None, bound
         store = MemoryStore()
         store.set_stage("interphase")
     log, timings = [], {}
-    pk.ab_pair_forces.launches = 0
+    launched_from = _pair_launches()
     final = halo.run_halo_g1(store, mesh, start, settings, log.append, timings,
                              halo_width, edge_capacity)
-    return _result(mesh, final=final, log=log, timings=timings, store=store)
+    return _result(mesh, launched_from, final=final, log=log, timings=timings, store=store)
 
 
 def halo_forces(config, arrays, settings, x, semiaxes, step, bound=None) -> dict:
@@ -125,7 +132,7 @@ def interphase(target, settings=None, n_shards=None) -> dict:
             store = open_store(target)
         else:
             store = target
-    pk.ab_pair_forces.launches = 0
+    launched_from = _pair_launches()
     try:
         if n_shards is None:
             final = run_interphase(store, settings, log.append, timings=timings, mesh=mesh)
@@ -135,7 +142,7 @@ def interphase(target, settings=None, n_shards=None) -> dict:
         if isinstance(target, str) and store is not None:
             store.close()
     kept = target if mesh.shard == 0 and not isinstance(target, str) else None
-    return _result(mesh, final=final, log=log, timings=timings, store=kept)
+    return _result(mesh, launched_from, final=final, log=log, timings=timings, store=kept)
 
 
 def sharded_steps(config, arrays, settings, x, semiaxes, seed, steps, bound=None) -> dict:
@@ -148,12 +155,12 @@ def sharded_steps(config, arrays, settings, x, semiaxes, seed, steps, bound=None
     model = _model(mesh, config, arrays, settings, bound)
     carry = sharded.init_sharded_carry(model, mesh, np.asarray(x)[None], [seed],
                                        np.asarray(semiaxes)[None], model.settings.acc_capacity)
-    pk.ab_pair_forces.launches = 0
+    launched_from = _pair_launches()
     carry = sharded.make_sharded_chunk(model, mesh, steps)(carry, 0)
     mine = torch.as_tensor(carry.window.take(), dtype=torch.int64, device=mesh.device)
     parts = [p.cpu().numpy() for p in mesh_ops.all_gather(mine, mesh)]
     window = merge_window([(p[:, 0], p[:, 1], p[:, 2]) for p in parts])
-    return _result(mesh, positions=carry.positions.cpu().numpy(),
+    return _result(mesh, launched_from, positions=carry.positions.cpu().numpy(),
                    semiaxes=carry.semiaxes.cpu().numpy(), window=window,
                    home=sharded.home_range(model.n, mesh)[:2])
 
@@ -174,7 +181,7 @@ def ensemble(targets, settings=None) -> dict:
         else:
             stores[k] = targets[k]
     log, timings = [], {}
-    pk.ab_pair_forces.launches = 0
+    launched_from = _pair_launches()
     try:
         final = run_ensemble_interphase(stores, settings, log.append, timings=timings, mesh=mesh)
     finally:
@@ -182,7 +189,8 @@ def ensemble(targets, settings=None) -> dict:
             if isinstance(targets[k], str):
                 stores[k].close()
     kept = {k: stores[k] for k in mine if not isinstance(targets[k], str)}
-    return _result(mesh, replicas=mine, final=final, log=log, timings=timings, stores=kept)
+    return _result(mesh, launched_from, replicas=mine, final=final, log=log, timings=timings,
+                   stores=kept)
 
 
 def run_tasks(tasks) -> dict:

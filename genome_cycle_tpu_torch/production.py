@@ -12,8 +12,10 @@ balanced haploid map -> O/E + PC1).  It writes
 
 - ``RUN_DIR/pc1.tsv`` and ``RUN_DIR/aux.json``, the files ``pc1 --output
   pc1.tsv --aux-output aux.json`` writes for the same map;
-- ``RUN_DIR/summary.json``: each stage's wall seconds, steps, steps/s and
-  peak device memory (or that it was skipped), each G1 window this process
+- ``RUN_DIR/summary.json``: each stage's wall seconds, steps, steps/s,
+  peak device memory and the increase of the port's counters
+  (``utils/tracing.py``: kernel launches, host syncs, reruns, store bytes
+  and files) over it (or that it was skipped), each G1 window this process
   wrote (rows, tick events, accumulator capacity, seconds), the trajectory's
   counts (frames, windows, COO rows, contact events, the largest window) and
   the analysis' counts and seconds.
@@ -40,6 +42,7 @@ import torch
 from . import resolve_device
 from .store import open_store
 from .topology import derive_stage_seeds
+from .utils import tracing
 from .utils.logging import log_stderr
 
 STORE_NAME = "trajectory"
@@ -113,8 +116,9 @@ def run_production(output: str, config_path: str, chains_path: str, seed=None,
         return time.perf_counter()
 
     def stage(name, done, fn):
-        """Run stage ``name`` unless ``done``; record its seconds, steps and
-        peak device memory (the counts from ``fn``'s timings)."""
+        """Run stage ``name`` unless ``done``; record its seconds, steps,
+        peak device memory (the counts from ``fn``'s timings) and the
+        counters' increase."""
         if done:
             log(f"=== {name}: done before, skipped ===")
             stages[name] = {"skipped": True}
@@ -123,9 +127,10 @@ def run_production(output: str, config_path: str, chains_path: str, seed=None,
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         timings = {}
+        counts = tracing.counters()
         started = clock()
         fn(timings)
-        entry = {"seconds": clock() - started}
+        entry = {"seconds": clock() - started, "counters": tracing.counters_since(counts)}
         for key in [k for k in timings if k.endswith("_seconds")]:
             phase = key[: -len("_seconds")]
             steps = timings[phase + "_steps"]

@@ -50,6 +50,7 @@ from typing import Optional
 import numpy as np
 
 from .config import SimulationConfig, format_config, parse_config
+from .utils import tracing
 from .topology import (
     INTERPHASE_TYPES,
     MITOTIC_TYPES,
@@ -166,7 +167,8 @@ class _StoreViews:
     primitives ``_has``, ``_get``, ``_get_text``, ``_get_texts``, ``_put``,
     ``_put_text``, ``_put_texts``, ``_put_enum``, ``_get_enum``, ``_remove``,
     ``_names``, ``_link``, ``_contents`` (every dataset with its kind, and the
-    links, for :func:`copy_store`), ``flush`` and ``close``.
+    links, for :func:`copy_store`), ``flush`` and ``close``.  Each public
+    write of a frame or checkpoint is the span ``store`` (``utils/tracing.py``).
     """
 
     _stage = ""
@@ -267,6 +269,7 @@ class _StoreViews:
             return []
         return [int(s) for s in self._get_texts(path)]
 
+    @tracing.traced("store")
     def append_frame(self, step: int):
         # Stored as strings for schema parity (simulation_store.cpp:177-189,
         # including the upstream "FIXME: Why strings?").
@@ -287,6 +290,7 @@ class _StoreViews:
     def check_positions(self, step: int) -> bool:
         return self._has(self._data_path(step, "positions"))
 
+    @tracing.traced("store")
     def save_positions(self, step: int, positions: np.ndarray):
         data = quantize_positions(positions).astype(np.float32)
         path = self._data_path(step, "positions")
@@ -295,6 +299,7 @@ class _StoreViews:
     def load_positions(self, step: int) -> np.ndarray:
         return self._get(self._data_path(step, "positions")).astype(np.float64)
 
+    @tracing.traced("store")
     def save_interphase_context(self, step: int, context: InterphaseContext):
         self._put_text(self._data_path(step, "context"), context.to_json())
 
@@ -306,6 +311,7 @@ class _StoreViews:
     # -- intra-stage checkpointing (new capability over the reference, whose
     # -- only checkpoint granularity is whole stages; SURVEY.md §5.3-5.4) ----
 
+    @tracing.traced("store")
     def save_checkpoint(self, step: int, arrays: dict):
         """Persist a snapshot of the step state under <stage>/.checkpoint.
 
@@ -334,6 +340,7 @@ class _StoreViews:
     def clear_checkpoint(self):
         self._remove(self._data_path(".checkpoint"))
 
+    @tracing.traced("store")
     def save_contacts(self, step: int, contacts: np.ndarray):
         """Sorted COO (i, j, count) rows; no-op when empty
         (simulation_store.cpp:253-267)."""
@@ -587,7 +594,8 @@ class DirectoryStore(_StoreViews):
 
     def _replace(self, target: str, write):
         """``write(file object)`` into a temporary file beside ``target``,
-        then move it over ``target``."""
+        then move it over ``target``; counts the file and its bytes
+        (``store.files``, ``store.bytes``)."""
         if not self._writable:
             raise OSError(f"directory store {self.root} is open read-only")
         folder = os.path.dirname(target)
@@ -597,7 +605,10 @@ class DirectoryStore(_StoreViews):
         try:
             with os.fdopen(handle, "wb") as f:
                 write(f)
+                size = f.tell()
             os.replace(temporary, target)
+            tracing.count("store.files")
+            tracing.count("store.bytes", size)
         except BaseException:
             self._remove_file(temporary)
             raise

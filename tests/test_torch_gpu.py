@@ -23,9 +23,15 @@ import pytest
 import torch
 
 from genome_cycle_tpu_torch.ops import pair_kernels as pk
+from genome_cycle_tpu_torch.utils import tracing
 
 import test_torch_correlation as gate
 from test_torch_correlation import surrogate_exe  # noqa: F401  (fixture)
+
+
+def _launches(kernel="ab_pair_forces"):
+    """The launches of ``kernel`` the port has counted in this process."""
+    return tracing.counters().get("launch." + kernel, 0)
 
 
 def _beads(n, seed):
@@ -104,10 +110,10 @@ def test_two_launches_are_bitwise_equal(cuda_device, with_energy):
 def test_first_version_of_the_kernel_matches_plain_version(cuda_device):
     layout = _layout(_beads(3000, seed=11), cuda_device)
     kparams = _kparams(1.0)
-    before = pk.ab_pair_forces.launches
+    before = _launches()
     f, e = pk._ab_pair_forces_thread_per_bead(layout, kparams, with_energy=True)
     torch.cuda.synchronize()
-    assert pk.ab_pair_forces.launches == before     # the yardstick counts apart
+    assert _launches() == before     # the yardstick counts apart
     _assert_matches_plain(layout, kparams, f, e)
 
 
@@ -116,10 +122,10 @@ def test_first_version_of_the_kernel_matches_plain_version(cuda_device):
 def test_cuda_kernel_matches_plain_version(cuda_device, core_scale):
     layout = _layout(_beads(3000, seed=11), cuda_device)
     kparams = _kparams(core_scale)
-    before = pk.ab_pair_forces.launches
+    before = _launches()
     f, e = pk.ab_pair_forces(layout, kparams, with_energy=True)
     torch.cuda.synchronize()
-    assert pk.ab_pair_forces.launches == before + 1
+    assert _launches() == before + 1
     _assert_matches_plain(layout, kparams, f, e)
 
 
@@ -154,10 +160,10 @@ def test_cuda_kernel_on_stacked_replicas_matches_plain_and_single_launches(cuda_
     stacked = pk.build_cell_layout(x, af, bf, 1.2, 0.3)
     assert stacked.shape == (26, 8, 8)
     kparams = _kparams(1.0)
-    before = pk.ab_pair_forces.launches
+    before = _launches()
     f, e = pk.ab_pair_forces(stacked, kparams, with_energy=True)
     torch.cuda.synchronize()
-    assert pk.ab_pair_forces.launches == before + 1
+    assert _launches() == before + 1
     _assert_matches_plain(stacked, kparams, f, e)
     f = f.reshape(x.shape)
     for r in range(3):
@@ -318,11 +324,11 @@ def test_cuda_ensemble_launches_the_kernel_once_a_step(cuda_device, tmp_path):
     from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
 
     stores = _ensemble_stores(tmp_path, cuda_device)
-    before = pk.ab_pair_forces.launches
+    before = _launches()
     final = run_ensemble_interphase(
         stores, settings=EngineSettings(brute_force_threshold=0), log=lambda m: None,
         device=cuda_device)
-    assert pk.ab_pair_forces.launches - before == 40 + 80     # relaxation + G1 steps
+    assert _launches() - before == 40 + 80     # relaxation + G1 steps
     assert final.shape == (2, 600, 3) and np.isfinite(final).all()
     assert np.abs(final[0] - final[1]).max() > 1e-2
     for store in stores:
@@ -332,14 +338,66 @@ def test_cuda_ensemble_launches_the_kernel_once_a_step(cuda_device, tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_every_host_sync_of_the_g1_is_a_marked_site(cuda_device, tmp_path, replicas):
+    """The G1 of ``run_interphase`` (one replica) or of the ensemble (two),
+    80 steps with 4 ticks, 4 frames, 2 window dumps and checkpoints, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with tracing on: from the
+    first G1 step on, every synchronising call the debug mode flags is made
+    inside a ``sync.*`` span, and none inside ``g1.step``."""
+    import warnings
+
+    from genome_cycle_tpu_torch.models.interphase import EngineSettings, run_interphase
+    from genome_cycle_tpu_torch.parallel.ensemble import run_ensemble_interphase
+
+    stores = _ensemble_stores(tmp_path, cuda_device, replicas)
+    flagged = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        names = [s.name for s in tracing._state.stack]
+        started = flagged or "g1.step" in names or any(
+            s["name"] == "g1.step" for s in tracing.snapshot()["spans"])
+        if started:
+            flagged.append(names)
+
+    settings = EngineSettings(brute_force_threshold=0)
+    before = tracing.counters()
+    tracing.start()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                if replicas == 1:
+                    run_interphase(stores[0], settings=settings, log=lambda m: None,
+                                   device=cuda_device)
+                else:
+                    run_ensemble_interphase(stores, settings=settings, log=lambda m: None,
+                                            device=cuda_device)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        tracing.stop()
+    since = tracing.counters_since(before)
+    assert since["sync.tick_count"] >= 4 and since["sync.merge_unique"] == 4
+    assert flagged, "the debug mode flagged no synchronising call"
+    unmarked = [names for names in flagged if not names or not names[-1].startswith("sync.")]
+    assert not unmarked, unmarked[:5]
+    assert not [names for names in flagged if "g1.step" in names]
+
+
+@pytest.mark.gpu
 def test_contact_map_pearson_vs_surrogate_through_the_kernel(
         cuda_device, surrogate_exe, tmp_path):  # noqa: F811
     """The gate of tests/test_torch_correlation.py with the port's steps on
     the card: every pair force comes from the CUDA kernel, one launch a step
     for all the replicas."""
-    before = pk.ab_pair_forces.launches
+    before = _launches()
     gate.contact_map_gate(surrogate_exe, tmp_path, cuda_device)
-    assert pk.ab_pair_forces.launches - before == gate.STEPS
+    assert _launches() - before == gate.STEPS
 
 
 @pytest.mark.gpu
@@ -434,14 +492,14 @@ def test_contact_tick_kernel_matches_plain_version(cuda_device):
     from genome_cycle_tpu_torch.ops import contact
 
     for name, layout, begin, end in _tick_layouts(cuda_device):
-        before = contact.contact_events.launches
+        before = _launches("contact_tick")
         got = contact.contact_events(layout, 0.24, begin, end)
         want = contact.contact_events_reference(layout, 0.24, begin, end)
         torch.cuda.synchronize()
         # A fresh capacity holds 16 rows a bead: the overfull cell's pairs
         # exceed it, and the tick runs again with more.
         rerun = len(want) > 16 * layout.n
-        assert contact.contact_events.launches == before + 1 + rerun, name
+        assert _launches("contact_tick") == before + 1 + rerun, name
         assert got.dtype == torch.int32 and (got[:, 2] == 1).all(), name
         assert _pair_set(got) == _pair_set(want), name
         if name == "one bead":
@@ -459,10 +517,10 @@ def test_contact_tick_kernel_matches_its_first_version(cuda_device):
 
     for name, layout, begin, end in _tick_layouts(cuda_device):
         got = contact.contact_events(layout, 0.24, begin, end)
-        before = contact.contact_events.launches
+        before = _launches("contact_tick")
         first = contact._contact_events_launched(layout, 0.24, begin, end, first_version=True)
         torch.cuda.synchronize()
-        assert contact.contact_events.launches == before, name
+        assert _launches("contact_tick") == before, name
         assert _pair_set(got) == _pair_set(first), name
 
 
@@ -476,10 +534,10 @@ def test_contact_tick_overflow_reruns_and_two_launches_merge_equal(cuda_device):
     layout = _layout(_beads(3000, seed=11), cuda_device)
     want = contact.contact_events_reference(layout, 0.24)
     capacity = contact.EventCapacity(64)
-    before = contact.contact_events.launches
+    before = _launches("contact_tick")
     got = contact.contact_events(layout, 0.24, capacity=capacity)
     torch.cuda.synchronize()
-    assert contact.contact_events.launches == before + 2
+    assert _launches("contact_tick") == before + 2
     assert capacity.rows >= len(want) and capacity.rows % 4096 == 0
     assert _pair_set(got) == _pair_set(want)
     merged = []
@@ -490,7 +548,7 @@ def test_contact_tick_overflow_reruns_and_two_launches_merge_equal(cuda_device):
         assert overflow == 0
         merged.append(acc[:rows])
     assert torch.equal(*merged)
-    assert contact.contact_events.launches == before + 4
+    assert _launches("contact_tick") == before + 4
 
 
 def _rest_inputs(device, replicas=None, n=300, seed=31):
@@ -559,12 +617,12 @@ def test_rest_kernel_matches_plain_version(cuda_device, replicas):
     from genome_cycle_tpu_torch.ops.wall import wall_forces_reference
 
     x, forces, bonds, wall = _rest_inputs(cuda_device, replicas)
-    before = step_rest.launch_rest.launches
+    before = _launches("step_rest")
     rest = step_rest.launch_rest(x, forces, bonds, wall, with_energy=True)
     again = step_rest.launch_rest(x, forces, bonds, wall, with_energy=True)
     f_p, r_p, eb_p, ew_p = _rest_plain(x, forces, bonds, wall)
     torch.cuda.synchronize()
-    assert step_rest.launch_rest.launches == before + 2
+    assert _launches("step_rest") == before + 2
     assert torch.isfinite(rest.out).all()
     _assert_close(rest.out, f_p)
     _assert_close(rest.reaction, r_p)
@@ -617,7 +675,7 @@ def test_rest_kernel_with_nucleolar_rows_matches_plain_version(cuda_device, repl
     x, bonds = _with_nucleolus(x, bonds, cuda_device)
     f_p, r_p, eb_p, ew_p = _rest_plain(x, forces, bonds, wall)
     plain_bonds = _rest_plain(x, forces, bonds._replace(nucleolar=None), wall)[0]
-    before = step_rest.launch_rest.launches
+    before = _launches("step_rest")
     got = [step_rest.rest(x, forces.clone(), bonds, wall, with_energy=True) for _ in range(2)]
     mobility = torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, x.shape[-2]),
                                dtype=torch.float32, device=cuda_device)
@@ -627,7 +685,7 @@ def test_rest_kernel_with_nucleolar_rows_matches_plain_version(cuda_device, repl
     want = integrator.bd_update_reference(x, f_p, mobility, None,
                                           integrator.BDParams(1.0, 1e-5), noise=update.noise)
     torch.cuda.synchronize()
-    assert step_rest.launch_rest.launches == before + 3
+    assert _launches("step_rest") == before + 3
     assert float((f_p - plain_bonds).abs().max()) > 1e-2      # the nucleolar terms count
     for a, b in zip(got[0][:4], got[1][:4]):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
@@ -669,12 +727,12 @@ def test_update_kernel_matches_plain_version(cuda_device, replicas, spacestep):
                                dtype=torch.float32, device=cuda_device)
     noise = torch.randn(x.shape, device=cuda_device)
     params = integrator.BDParams(1.0, 1e-4, spacestep)
-    before = step_rest.launch_update.launches
+    before = _launches("bd_update")
     got = integrator.bd_update(x, forces * 100, mobility, None, params, noise=noise)
     again = integrator.bd_update(x, forces * 100, mobility, None, params, noise=noise)
     want = integrator.bd_update_reference(x, forces * 100, mobility, None, params, noise=noise)
     torch.cuda.synchronize()
-    assert step_rest.launch_update.launches == before + 2
+    assert _launches("bd_update") == before + 2
     assert torch.equal(got, again)
     _assert_close(got, want)
     _assert_close(got - x, want - x, 1e-4)         # the displacement itself
@@ -805,12 +863,12 @@ def test_mitotic_chunk_kernel_matches_plain_version_at_temperature_0(
 
     model, terms, x = _mitotic_phase(tmp_path, cuda_device, phase, temperature=0.0, **fields)
     noise = torch.randn((200, model.n, 3), device=cuda_device)
-    before = mitotic.launch_chunk.launches
+    before = _launches("mitotic_chunk")
     got = mitotic.run_chunk(x, terms, model.mobility, noise, 0.0, model.config.timestep)
     want = mitotic.run_chunk_reference(x, terms.forces, model.mobility, noise, 0.0,
                                        model.config.timestep)
     torch.cuda.synchronize()
-    assert mitotic.launch_chunk.launches == before + 1
+    assert _launches("mitotic_chunk") == before + 1
     assert float((want - x).abs().max()) > 0.05
     assert float((got - want).abs().max()) <= 1e-4
 
@@ -855,12 +913,12 @@ def test_mitotic_chunk_kernel_refuses_a_system_past_its_capacity(cuda_device, tm
     model, terms, x = _mitotic_phase(tmp_path, cuda_device, "anaphase")
     n = mitotic.device_capacity(cuda_device) + 1
     big = terms._replace(table=torch.zeros((n, 1, 4), dtype=torch.int32, device=cuda_device))
-    before = mitotic.launch_chunk.launches
+    before = _launches("mitotic_chunk")
     with pytest.raises(ValueError, match="holds at most"):
         mitotic.run_chunk(torch.zeros((n, 3), device=cuda_device), big,
                           torch.ones(n, device=cuda_device),
                           torch.zeros((2, n, 3), device=cuda_device), 1.0, 1e-4)
-    assert mitotic.launch_chunk.launches == before
+    assert _launches("mitotic_chunk") == before
     noise = torch.zeros((2, model.n, 3), device=cuda_device)
     with pytest.raises(TypeError):
         mitotic.run_chunk(x.double(), terms, model.mobility, noise, 1.0, 1e-4)

@@ -26,6 +26,7 @@ from genome_cycle_tpu_torch.ops import pair_kernels as pk
 from genome_cycle_tpu_torch.ops.contact import contact_events
 from genome_cycle_tpu_torch.ops import potentials as tpot
 from genome_cycle_tpu_torch.ops.neighbor import pairwise_forces_dense
+from genome_cycle_tpu_torch.utils import tracing
 
 # The suite runs in several worker processes at once: one thread each keeps
 # torch from oversubscribing the cores (sizes here are tiny).
@@ -235,9 +236,9 @@ def test_wrapper_refuses_a_cell_smaller_than_the_cores():
 
 def test_cpu_wrapper_counts_no_launch():
     x, af, bf = _beads(50, seed=10)
-    before = pk.ab_pair_forces.launches
+    before = tracing.counters().get("launch.ab_pair_forces", 0)
     pk.ab_pair_forces(_layout(x, af, bf), _kparams(1.0)[0])
-    assert pk.ab_pair_forces.launches == before
+    assert tracing.counters().get("launch.ab_pair_forces", 0) == before
 
 
 def _padded_layout(n=400, real=300, seed=12):

@@ -326,7 +326,16 @@ def test_production_main_at_a_cut_config(cycle_inputs, tmp_path):
     assert list(summary["stages"]) == ["prepare", "anatelophase", "transition interphase",
                                        "interphase", "transition prometaphase", "prometaphase"]
     g1 = summary["stages"]["interphase"]
-    assert set(g1) == {"seconds", "relaxation", "g1", "windows", "grid_bound"}
+    assert set(g1) == {"seconds", "counters", "relaxation", "g1", "windows", "grid_bound"}
+    # Each stage's counter increases: every stage writes its store; the G1
+    # syncs at each tick's merge and no merge ran again (on the CPU no kernel
+    # launches).
+    for name, entry in summary["stages"].items():
+        assert entry["counters"]["store.files"] > 0 and entry["counters"]["store.bytes"] > 0, name
+        assert not any(k.startswith("launch.") and v for k, v in entry["counters"].items()), name
+    assert g1["counters"]["sync.merge_unique"] == 80 // 20
+    assert g1["counters"]["sync.frame_energy"] >= 5 + 3     # frames of G1 and relaxation
+    assert g1["counters"].get("window.merge_reruns", 0) == 0
     assert g1["g1"]["steps"] == 80 and summary["stages"]["anatelophase"]["anaphase"]["steps"] == 300
     assert summary["trajectory"]["frames"] == 5 and summary["trajectory"]["windows"] == 3
     assert summary["trajectory"]["contact_events"] == sum(w["events"] for w in g1["windows"])
