@@ -15,12 +15,14 @@ prints no result.  It
    first version, kept as a yardstick (``ab_pair_forces.cu``); the contact
    tick (``contact_tick.cu``); the rest of a step — bonds, wall, update — and
    the update alone (``step_rest.cu``); the mitotic stages' chunk of steps
-   (``mitotic_chunk.cu``);
+   (``mitotic_chunk.cu``); the cell layout (``cell_layout.cu``);
 3. holds the kernel's wrapper against its plain PyTorch version on the card
    (and the first version too): at 300 beads, at inputs made for the kernel's
    control flow, and at three structures of the main path's 59,610 particles;
    checks that two launches give the same bits; and times new and first
-   version in turns; then phase "step kernels": the tick (also forced to
+   version in turns; the layout kernels (``cell_layout.cu``) against their
+   plain version, bit for bit, after G1 and on the ensemble's four replicas
+   stacked, both timed; then phase "step kernels": the tick (also forced to
    overflow and run again, and its first version) with the half-stencil
    candidates a row, mean and largest, the rest kernel with its wall reaction
    and the nucleolar rows, the update kernel and the fused G1 launch against
@@ -171,7 +173,8 @@ CONFIG_STORE = {"mitotic_phase": {"anaphase_steps": 2000, "telophase_steps": 600
 STORE_RESUME_STEP = 2000
 # The hand-written kernels whose launches the port counts
 # (``launch.<kernel>``, ``genome_cycle_tpu_torch/utils/tracing.py``).
-KERNELS = ("ab_pair_forces", "contact_tick", "step_rest", "bd_update", "mitotic_chunk")
+KERNELS = ("ab_pair_forces", "contact_tick", "step_rest", "bd_update", "mitotic_chunk",
+           "cell_layout")
 # Runs a module as ``python -m`` does, then prints the launches of the pair
 # kernel and of the step kernels in that process (the counts a subprocess
 # cannot hand back otherwise).
@@ -1390,6 +1393,47 @@ def kernel_at(label, layout, params, pk, errors, n):
                 cells=layout.num_cells)
 
 
+def check_layout_kernel(label, model, x, pk):
+    """The layout kernels (``csrc/cell_layout.cu``) against their plain
+    version on the model's grid at positions ``x``: every field equal to the
+    bit; both timed by CUDA events over 20 launches.  The bound: positions
+    and factors read once, order, ids, positions, factors and the cell starts
+    written once, over 3.35 TB/s.  Returns the entry for the kernels line."""
+    args = (x, model.af, model.bf, model.bound, model.cell)
+    got = pk.build_cell_layout(*args)
+    want = pk.build_cell_layout_reference(*args)
+    torch.cuda.synchronize()
+    for field in pk.CellLayout._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        same = (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                if torch.is_tensor(b) else a == b)
+        if not same:
+            fail("layout", f"{label}: the kernels' {field} differs from the plain version's")
+    ms = time_ms(lambda: pk.build_cell_layout(*args), 20)
+    plain_ms = time_ms(lambda: pk.build_cell_layout_reference(*args), 20)
+    rows, cells = got.n, got.num_cells
+    moved = (12 + 8 + 4 + 16 + 8) * rows + 8 * model.af.shape[0] + 4 * (cells + 1)
+    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    phase("layout", f"{label}: {rows} rows, {cells} cells, "
+                    f"every field equal to the plain version's; kernels {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms ({plain_ms / ms:.2f} times), bound {bound_ms:.5f} ms "
+                    f"({moved} bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", rows=rows,
+                cells=cells, bytes=moved)
+
+
+def layout_kernel_entry(launches, timed):
+    """The layout kernels' entry of the kernels line."""
+    main = timed["after G1"]
+    return {"name": "cell_layout", "route": "cuda",
+            "source": "genome_cycle_tpu_torch/csrc/cell_layout.cu",
+            "replaces": "JAX: XLA-fused sort and searchsorted, "
+                        "genome_cycle_tpu/ops/block_pairs.py (build_structure)",
+            "launches": launches, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shapes": timed}
+
+
 def fit_g1_steps(seconds, started, device):
     """The deepest G1 (a multiple of 10,000 steps, at most 700,000) that
     lets the production run and its checks end within ``seconds`` of
@@ -2304,7 +2348,7 @@ def main():
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("ab_pair_forces", "contact_tick", "step_rest", "mitotic_chunk")
+    sources = ("ab_pair_forces", "contact_tick", "step_rest", "mitotic_chunk", "cell_layout")
     _build.build_all(sources)               # one nvcc a source, all at once
     phase("build", f"{', '.join(s + '.cu' for s in sources)} built in "
                    f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
@@ -2313,7 +2357,8 @@ def main():
         for line in _build.build_log(source).splitlines():
             entry = re.search(r"\d(ab_pair_forces_\w+?_kernel)ILb(\d)E", line) or re.search(
                 r"\d+(contact_tick_kernel|step_rest_kernel|drift_limit_kernel|bd_update_kernel"
-                r"|mitotic_chunk_kernel)",
+                r"|mitotic_chunk_kernel|cell_id_kernel|cell_scan_kernel|cell_scatter_kernel"
+                r"|cell_gather_kernel)",
                 line)
             if entry:
                 kernel = entry.group(1) + (
@@ -2391,6 +2436,10 @@ def main():
             fail("check", f"the step kernels were not launched on the main path: at least "
                           f"{ticks} ticks and {steps + relax_steps} rest launches, and "
                           f"{relax_steps} update launches (the relaxation's only) expected")
+        if main_step_launches["cell_layout"] < steps + relax_steps + ticks:
+            fail("check", f"the layout kernels were not launched on the main path: at least "
+                          f"{steps + relax_steps + ticks} layouts (a step each, a tick each) "
+                          f"expected")
         check_chunk_launches("check", main_step_launches, m)
         x_metaphase = check_prometaphase(store, m)
         if not np.allclose(metaphase, x_metaphase, rtol=1e-4, atol=1e-4):
@@ -2434,6 +2483,9 @@ def main():
     compare("kernel: 59,610 beads after relaxation", layout_relaxed, p_init, pk, errors)
     layout_final = layout_of(x_final)
     compare("kernel: 59,610 beads after G1", layout_final, p_final, pk, errors)
+    layout_timed = {"after G1": check_layout_kernel(
+        "59,610 beads after G1", model, torch.as_tensor(x_final, dtype=torch.float32,
+                                                         device=device), pk)}
 
     # New kernel and first version in turns within this run: two runs may land
     # on two cards.  The bound counts what these inputs need: the distance
@@ -2496,6 +2548,8 @@ def main():
                                             EngineSettings(), device)
     x_ens = torch.as_tensor(ensemble["final"], dtype=torch.float32, device=device)
     ens_model.update_bound(float(x_ens.abs().max()))
+    layout_timed[f"ensemble of {REPLICAS}"] = check_layout_kernel(
+        f"{REPLICAS} x {ensemble['n']:,} beads stacked after G1", ens_model, x_ens, pk)
     ens_icfg = ens_model.config
     ens_core, ens_bond = ens_model.scales(ens_icfg.steps * ens_icfg.timestep)
     ens_timed = check_step_kernels(
@@ -2599,7 +2653,8 @@ def main():
         "shapes": timed,
     }] + step_kernel_entries(main_step_launches, step_errors, step_timed,
                              device_launches_per_call=counted)
-        + [mitotic_kernel_entry(main_step_launches["mitotic_chunk"], mitotic_timed)]}),
+        + [mitotic_kernel_entry(main_step_launches["mitotic_chunk"], mitotic_timed),
+           layout_kernel_entry(main_step_launches["cell_layout"], layout_timed)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

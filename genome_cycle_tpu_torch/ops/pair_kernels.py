@@ -9,16 +9,21 @@ scaled by the core scale, summed over the 27 neighbour cells of i.
 
 Three parts:
 
-- :func:`build_cell_layout` — plain torch, runs on either device: beads sorted
-  by flat cell id, a cell being the range ``[cell_start[c], cell_start[c+1])``
-  of that order.  No per-cell capacity, so nothing overflows.  R replicas of
-  one topology share one layout, cubes side by side along x, and so one
-  launch of the kernel.  Rows of a padded buffer (a rank's own beads and
-  halo bands, ``parallel/halo.py``) take no cell: they sort after every bead.
+- :func:`build_cell_layout` — the layout: beads sorted by flat cell id, a
+  cell being the range ``[cell_start[c], cell_start[c+1])`` of that order.
+  No per-cell capacity, so nothing overflows.  R replicas of one topology
+  share one layout, cubes side by side along x, and so one launch of the
+  kernel.  Rows of a padded buffer (a rank's own beads and halo bands,
+  ``parallel/halo.py``) take no cell: they sort after every bead.  On a CUDA
+  tensor it launches the hand-written ``csrc/cell_layout.cu`` (a stable
+  counting sort with the cells as its buckets, four kernels from one host
+  call) or raises; on a CPU tensor it
+  takes the plain version :func:`build_cell_layout_reference`, which the
+  card's tests hold the kernel to, bit for bit.
 - :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
   hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
-  takes the plain version.  It never falls back on the card.  (The source
-  also holds the kernel's first version, reached only through
+  takes the plain version.  Neither wrapper falls back on the card.  (The
+  source also holds the kernel's first version, reached only through
   :func:`_ab_pair_forces_thread_per_bead`, as a yardstick for timing.)
 - :func:`ab_pair_forces_reference` — the plain version, walking the same
   layout with ragged range expansion; the CPU tests and the on-card comparison
@@ -28,9 +33,11 @@ Three parts:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -99,13 +106,128 @@ def build_cell_layout(positions, af, bf, bound: float, cell: float, valid=None) 
     lies in no ``cell_start`` range: it meets no bead and no other padded
     row, whatever its coordinates.  (Clipping it into the grid instead would
     put every padded row in one edge cell, at r = 0 from each other.)
+
+    On a CUDA tensor the kernels of ``csrc/cell_layout.cu`` build it, launched
+    on the current stream from one host call; anything that keeps them from
+    launching raises.  On a CPU tensor :func:`build_cell_layout_reference`
+    builds it.  Both give the same layout to the bit on the card.
     """
+    if positions.device.type != "cuda":
+        return build_cell_layout_reference(positions, af, bf, bound, cell, valid)
     dims = grid_dims(bound, cell)
-    x = positions.to(torch.float32)
+    x = _float32(positions)
     replicas = x.shape[0] if x.dim() == 3 else 1
+    nx = _check_grid(replicas, dims)
+    cells = nx * dims * dims
+    per_replica = x.shape[-2]
+    rows = replicas * per_replica
+    device = x.device
+    af, bf = _float32(af), _float32(bf)
+    if af.device != device or bf.device != device:
+        raise ValueError(f"af and bf must lie on {device}")
+    if tuple(af.shape) != (per_replica,) or tuple(bf.shape) != (per_replica,):
+        raise ValueError(f"af and bf must hold {per_replica} factors, one a bead of a replica")
+    if valid is not None:
+        valid = valid.to(device=device, dtype=torch.bool).reshape(-1).contiguous()
+        if valid.shape[0] != rows:
+            raise ValueError(f"valid has {valid.shape[0]} rows, the positions {rows}")
+    index = device.index
+    # The stream's handle as PyTorch's own generated code reads it: a
+    # torch.cuda.Stream object costs 8 us of host a call on the H100's host.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    launch, scratch_bytes = _layout_entry_point(rows, cells)
+    scratch = _scratch_for(device, stream, scratch_bytes)
+    order = torch.empty(rows, dtype=torch.int64, device=device)
+    cell_id = torch.empty(rows, dtype=torch.int32, device=device)
+    cell_start = torch.empty(cells + 1, dtype=torch.int32, device=device)
+    xyz = torch.empty((rows, 4), dtype=torch.float32, device=device)
+    ab = torch.empty((rows, 2), dtype=torch.float32, device=device)
+    args = (x.data_ptr(), None if valid is None else valid.data_ptr(), af.data_ptr(),
+            bf.data_ptr(), rows, per_replica, dims, nx, -float(bound), _reciprocal(cell),
+            scratch.data_ptr(), scratch_bytes, order.data_ptr(), cell_id.data_ptr(),
+            cell_start.data_ptr(), xyz.data_ptr(), ab.data_ptr(), stream)
+    if torch.cuda.current_device() == index:     # the guard costs 6 us of host
+        status = launch(*args)
+    else:
+        with torch.cuda.device(device):
+            status = launch(*args)
+    if status != 0:
+        raise RuntimeError(f"cell layout kernel launch failed: CUDA error {status}")
+    tracing.count("launch.cell_layout")
+    return CellLayout(
+        cell=float(cell), dims=dims, order=order, cell_id=cell_id, cell_start=cell_start,
+        xyz=xyz, ab=ab, replicas=replicas, padded=valid is not None,
+    )
+
+
+def _check_grid(replicas: int, dims: int) -> int:
+    """Cells along x of R cubes of ``dims`` cells; raises where the grid's
+    cell ids (and the padded rows' one past them) do not fit 32 bits."""
     nx = replicas * (dims + 1) - 1
     if nx * dims * dims >= 2 ** 31 - 1:
         raise ValueError(f"grid of {nx} x {dims}^2 cells does not fit 32-bit cell ids")
+    return nx
+
+
+def _float32(tensor):
+    """``tensor`` as contiguous float32, itself where it is one already."""
+    if tensor.dtype == torch.float32 and tensor.is_contiguous():
+        return tensor
+    return tensor.to(torch.float32).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _reciprocal(cell: float) -> float:
+    """1 / cell in float32, as PyTorch forms ``t / cell`` on a CUDA tensor:
+    the product with the host scalar's float32 reciprocal."""
+    return float(np.float32(1.0) / np.float32(cell))
+
+
+_layout_lib = None
+_scratch_sizes: dict = {}
+# The layout's scratch for each card and stream, grown when short.  Layouts
+# on one stream run one after the other, so they never share it at once.
+_scratch: dict = {}
+
+
+def _layout_entry_point(rows: int, cells: int):
+    """(launch function, scratch bytes) of ``csrc/cell_layout.cu`` for
+    ``rows`` rows over ``cells`` cells."""
+    global _layout_lib
+    if _layout_lib is None:
+        lib = _build.load_library("cell_layout")
+        # Pointers and the stream as c_void_p: without argtypes ctypes
+        # passes a Python int as a 32-bit int and cuts the pointer.
+        lib.cell_layout_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cell_layout_scratch_bytes.restype = ctypes.c_ulonglong
+        lib.cell_layout_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+            + [ctypes.c_void_p, ctypes.c_ulonglong] + [ctypes.c_void_p] * 6)
+        lib.cell_layout_launch.restype = ctypes.c_int
+        _layout_lib = lib
+    key = (rows, cells)
+    if key not in _scratch_sizes:
+        _scratch_sizes[key] = _layout_lib.cell_layout_scratch_bytes(rows, cells)
+    return _layout_lib.cell_layout_launch, _scratch_sizes[key]
+
+
+def _scratch_for(device, stream: int, nbytes: int):
+    key = (device.index, stream)
+    held = _scratch.get(key)
+    if held is None or held.shape[0] < nbytes:
+        held = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _scratch[key] = held
+    return held
+
+
+def build_cell_layout_reference(positions, af, bf, bound: float, cell: float,
+                                valid=None) -> CellLayout:
+    """Plain torch version of :func:`build_cell_layout`, on either device:
+    the CPU's layout, and the card's yardstick for the kernels."""
+    dims = grid_dims(bound, cell)
+    x = positions.to(torch.float32)
+    replicas = x.shape[0] if x.dim() == 3 else 1
+    nx = _check_grid(replicas, dims)
     lower = -float(bound)
     coords = torch.floor((x - lower) / cell).to(torch.int64).clamp_(0, dims - 1)
     if x.dim() == 3:

@@ -10,10 +10,11 @@ briefly, and then times the layers of a G1 step one by one — each layer run
 clock, so a layer's number holds its launches and its device time — and the
 whole step, a relaxation step, a contact tick (layout and the tick kernel;
 the kernel's search alone) and a window merge the same way.  The layers of a
-G1 step are the layout, the pair kernel, the nucleolar terms, the noise and
-the one launch of the rest kernel (bonds, wall, update, wall ODE); the rest
-kernel's bonds alone and wall alone, the update kernel and the pair kernel's
-first version are timed apart.  ``torch.profiler`` windows over whole G1
+G1 step are the layout (the kernels of ``csrc/cell_layout.cu``, also alone by
+CUDA events), the pair kernel, the nucleolar terms, the noise and the one
+launch of the rest kernel (bonds, wall, update, wall ODE); the layout's plain
+version, the rest kernel's bonds alone and wall alone, the update kernel and
+the pair kernel's first version are timed apart.  ``torch.profiler`` windows over whole G1
 steps, relaxation steps and ticks give the device's busy share, the device
 kernels started a step and the device time by kernel name.  The eager steps of the three mitotic phases
 (576 coarse beads, 1,152 with sisters) are timed and profiled the same way,
@@ -331,7 +332,7 @@ def main():
     # the pair kernel's first version.
     bonds, wall = model.bond_rows(bond), model.wall_rows(semiaxes, core)
     layers = {
-        "layout_sort": host_ms(lambda: model.cell_layout(x), n),
+        "layout": host_ms(lambda: model.cell_layout(x), n),
         "pair_kernel": host_ms(lambda: pk.ab_pair_forces(layout, kparams), n),
         "noise": host_ms(lambda: standard_normal(x, generator), n),
         "rest_kernel_g1_launch": host_ms(
@@ -341,7 +342,11 @@ def main():
     # queued ahead).
     rest_device_ms = chip_smoke.time_ms(
         lambda: step_rest.launch_rest(x, forces, bonds, wall, fused), DEVICE_REPEATS)
+    # The layout kernels (csrc/cell_layout.cu) on the card alone, the same way.
+    layout_device_ms = chip_smoke.time_ms(lambda: model.cell_layout(x), DEVICE_REPEATS)
     apart = {
+        "layout_plain_version": host_ms(lambda: pk.build_cell_layout_reference(
+            x, model.af, model.bf, model.bound, model.cell), n),
         "pair_kernel_first_version": host_ms(
             lambda: pk._ab_pair_forces_thread_per_bead(layout, kparams), n),
         "bonded": host_ms(lambda: model.bonded_forces(x, bond), n),
@@ -399,6 +404,7 @@ def main():
         "layers_ms_per_step": layers,
         "layers_sum_ms": sum(layers.values()),
         "rest_kernel_g1_launch_device_ms": rest_device_ms,
+        "layout_device_ms": layout_device_ms,
         "not_in_a_g1_step_ms": apart,
         "whole_step_ms": step_ms,
         "relaxation_step_ms": relax_ms,

@@ -1,5 +1,6 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
-on a layout of several replicas; the step kernels (the contact tick and its
+on a layout of several replicas; the cell layout's kernels against theirs,
+bit for bit; the step kernels (the contact tick and its
 first version, the rest kernel with its wall reaction and nucleolar rows, the
 update) against theirs; an ensemble run on
 the card; the
@@ -204,6 +205,108 @@ def test_cuda_kernel_padded_layout_and_home_range(cuda_device):
         assert float((f[home] - f_full[home]).abs().max()) <= 1e-4 * max(float(f_full.abs().max()), 1.0)
         assert float((f - f_p).abs().max()) <= 1e-4 * max(float(f_p.abs().max()), 1.0)
         assert float(e.sum()) == pytest.approx(float(e_p.sum()), rel=1e-5, abs=1e-6)
+
+
+# -- the cell layout: csrc/cell_layout.cu against its plain version -------------
+
+LAYOUT_CASES = ["random", "clipped", "4 replicas stacked", "padded", "over 65,536 cells"]
+
+
+def _edge_values(bound, cell=0.3, ulps=4):
+    """float32 coordinates on every cell edge of the grid over [-bound,
+    bound] and up to ``ulps`` steps to either side, and how many of them a
+    true quotient by the cell puts in another cell than the product with its
+    float32 reciprocal (PyTorch's quotient by a host scalar on the card)."""
+    lower, c = np.float32(-bound), np.float32(cell)
+    values = []
+    for k in range(pk.grid_dims(bound, cell) + 1):
+        below = above = np.float32(lower + np.float32(k) * c)
+        values.append(below)
+        for _ in range(ulps):
+            below = np.nextafter(below, np.float32(-np.inf))
+            above = np.nextafter(above, np.float32(np.inf))
+            values += [below, above]
+    values = np.array(values, np.float32)
+    apart = np.floor((values - lower) / c) != np.floor((values - lower) * (np.float32(1) / c))
+    return values, int(apart.sum())
+
+
+def _layout_inputs(case, device):
+    """(positions, af, bf, bound, valid) of a layout case, on ``device``:
+    random beads at the production grid's bound with beads on and beside
+    every cell edge; beads far beyond the bound; four replicas stacked on the
+    four-replica grid (80,919 cells); a padded buffer; a grid of 74,088
+    cells."""
+    rng = np.random.default_rng(61)
+    bound, valid = 4.0, None
+    if case == "clipped":
+        bound = 1.2
+        x = rng.uniform(-3.0, 3.0, (3000, 3))
+        x[:6] = [[1.2, 1.2, 1.2], [-1.2, -1.2, -1.2], [2.5, 0.0, -2.5],
+                 [1e6, -1e6, 0.0], [1.19999, 1.2000001, -1.2000001], [-0.0, 0.0, 0.0]]
+    elif case == "over 65,536 cells":
+        bound = 6.15
+        x = rng.uniform(-6.3, 6.3, (20000, 3))
+    elif case == "4 replicas stacked":
+        x = rng.uniform(-3.8, 3.8, (4, 3000, 3))
+        x[:, :20] *= 1.2
+    else:
+        x = rng.uniform(-3.8, 3.8, (3000, 3))
+    if case != "clipped":
+        values, apart = _edge_values(bound)
+        assert apart > 0, "no edge bead tells the quotient from the product"
+        rows = x.reshape(-1, 3)
+        picks = rng.choice(len(rows), size=(len(values),), replace=False)
+        rows[picks, rng.integers(0, 3, len(values))] = values
+    n = x.shape[-2]
+    af = rng.uniform(0, 1, n).astype(np.float32)
+    if case == "padded":
+        valid = np.ones(n, bool)
+        valid[2200:] = False
+        x[2200:] = x[0]
+        valid = torch.as_tensor(valid, device=device)
+    x, af = (torch.as_tensor(v.astype(np.float32), device=device) for v in (x, af))
+    return x, af, 1.0 - af, bound, valid
+
+
+def _sorted_rows(events):
+    ev = events.cpu().numpy()
+    return ev[np.lexsort(ev.T[::-1])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_cell_layout_kernel_matches_plain_version_to_the_bit(cuda_device, case):
+    """The layout the kernels build equals the plain version's in every
+    field, bit for bit, with one counted launch; the pair kernel and the
+    tick give the same bits from either layout."""
+    from genome_cycle_tpu_torch.ops import contact
+
+    x, af, bf, bound, valid = _layout_inputs(case, cuda_device)
+    before = _launches("cell_layout")
+    got = pk.build_cell_layout(x, af, bf, bound, 0.3, valid=valid)
+    want = pk.build_cell_layout_reference(x, af, bf, bound, 0.3, valid=valid)
+    torch.cuda.synchronize()
+    assert _launches("cell_layout") == before + 1
+    assert (got.replicas, got.padded) == (4 if x.dim() == 3 else 1, valid is not None)
+    if case in ("4 replicas stacked", "over 65,536 cells"):
+        assert got.num_cells > 65536
+    for field in pk.CellLayout._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if torch.is_tensor(b):
+            assert a.dtype == b.dtype and a.shape == b.shape, field
+            assert torch.equal(a, b), field
+        else:
+            assert a == b, field
+    kparams = _kparams(1.0)
+    f_got, e_got = pk.ab_pair_forces(got, kparams, per_bead=True)
+    f_want, e_want = pk.ab_pair_forces(want, kparams, per_bead=True)
+    torch.cuda.synchronize()
+    assert float(f_want.abs().max()) > 0
+    assert torch.equal(f_got, f_want) and torch.equal(e_got, e_want)
+    events = [contact.contact_events(layout, 0.24) for layout in (got, want)]
+    assert len(events[0]) > 0
+    np.testing.assert_array_equal(_sorted_rows(events[0]), _sorted_rows(events[1]))
 
 
 def _chain_walk(n, chains, radius, bond_rms=0.1, seed=0):

@@ -208,6 +208,33 @@ def test_cell_layout_against_numpy_bincount(bound, cell):
     assert layout.xyz.is_contiguous() and layout.ab.is_contiguous()
 
 
+@pytest.mark.parametrize("case", ["one system", "3 replicas stacked", "padded"])
+def test_cell_layout_on_the_cpu_is_the_plain_version(case):
+    """On a CPU tensor the layout's wrapper takes its plain version, field
+    for field, launches nothing and keeps its ``layout`` span."""
+    x, af, bf = _beads(600, seed=9)
+    valid = None
+    if case == "3 replicas stacked":
+        x = np.stack([x, -x, x[::-1] * 1.5])
+    elif case == "padded":
+        valid = torch.as_tensor(np.arange(len(x)) < 450)
+    args = (torch.as_tensor(x), torch.as_tensor(af), torch.as_tensor(bf), 1.2, 0.3)
+    before = tracing.counters()
+    tracing.start()
+    try:
+        layout = pk.build_cell_layout(*args, valid=valid)
+        spans = tracing.snapshot()["spans"]
+    finally:
+        tracing.stop()
+    want = pk.build_cell_layout_reference(*args, valid=valid)
+    assert tracing.counters_since(before).get("launch.cell_layout", 0) == 0
+    assert [(s["name"], s["calls"]) for s in spans] == [("layout", 1)]
+    for field in pk.CellLayout._fields:
+        got, ref = getattr(layout, field), getattr(want, field)
+        assert torch.equal(got, ref) if torch.is_tensor(ref) else got == ref, field
+    assert layout.padded == (valid is not None) and layout.replicas == x.size // x.shape[-1] // 600
+
+
 def test_stencil_covers_each_pair_once():
     x, af, bf = _beads(400, seed=8)
     layout = _layout(x, af, bf)
