@@ -30,7 +30,10 @@ prints no result.  It
    four replicas stacked, timed beside their bounds (the tick and its first
    version in turns); 200 G1 steps at T = 0 through the kernels against the
    plain composition, step for step; and the device kernels a G1 step, a
-   relaxation step and a tick start (``torch.profiler``);
+   relaxation step and a tick start (``torch.profiler``); phase "graph": a
+   G1 step as one replay of its CUDA graph against the eager step, in turns,
+   at 59,610 and 4 x 59,610 beads, by host clock and CUDA events, the two
+   runs equal to the bit;
 4. drives the port's main path at full width, a whole cell cycle of the
    diploid hg38 nucleus at 100 kb per bead through the entry points the CLI
    command ``cycles`` chains — ``run_prepare``, ``run_anatelophase``,
@@ -38,7 +41,8 @@ prints no result.  It
    ``transition_prometaphase``, ``run_prometaphase``, all on the card — with
    the depth cut (``CONFIG`` below), and checks what every stage wrote and
    that the mitotic stages launched the chunk kernel once a
-   ``sampling_interval`` and the update kernel only in the relaxation; then
+   ``sampling_interval`` and the update kernel only in the relaxation, and
+   that at least 99 % of the G1 steps ran as CUDA graph replays; then
    phase "mitotic kernel": the chunk kernel against its plain version at the
    three mitotic phases' start structures of that cycle (576, 576 and 1,152
    beads), timed against the eager step and the
@@ -2011,6 +2015,76 @@ def zero_temperature_steps(model, x0, semiaxes0):
     return worst
 
 
+# A G1 step as one CUDA graph replay against the eager step: GRAPH_STEPS
+# steps a turn, GRAPH_TURNS turns each, from one start and seeds.
+GRAPH_STEPS = 200
+GRAPH_TURNS = 3
+# The share of the main path's G1 steps that must run as graph replays.
+GRAPH_SHARE = 0.99
+
+
+def time_graph_step(label, model, x, semiaxes, step0):
+    """A G1 step of ``model`` from ``x`` as one replay of its CUDA graph
+    (``_bd_step4``) and as the eager step (``_eager_step``), in turns, each
+    turn GRAPH_STEPS steps from the same start on generators seeded alike,
+    after one untimed step (the capture): host milliseconds a step to
+    enqueue them, wall milliseconds a step to their end, and CUDA-event
+    milliseconds a step over them.  The two runs must end equal to the bit.
+    Returns the medians."""
+    replicas = x.shape[0] if x.dim() == 3 else 1
+    runs = {"replay": model._bd_step4, "eager": model._eager_step}
+    numbers = {name: [] for name in runs}
+    ends = {}
+    for _ in range(GRAPH_TURNS):
+        for name, fn in runs.items():
+            gens = [torch.Generator(device=x.device).manual_seed(k + 1) for k in range(replicas)]
+            carry = fn((x.clone(), gens if x.dim() == 3 else gens[0], semiaxes.clone()),
+                       step0 + 1)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for k in range(GRAPH_STEPS):
+                carry = fn(carry, step0 + 2 + k)
+            stop.record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            numbers[name].append(((t1 - t0) * 1e3 / GRAPH_STEPS, (t2 - t0) * 1e3 / GRAPH_STEPS,
+                                  start.elapsed_time(stop) / GRAPH_STEPS))
+            ends[name] = (carry[0].clone(), carry[2].clone())
+    medians = {name: [float(np.median(column)) for column in zip(*rows)]
+               for name, rows in numbers.items()}
+    same = all(torch.equal(a, b) for a, b in zip(ends["replay"], ends["eager"]))
+    (r_host, r_wall, r_events), (e_host, e_wall, e_events) = medians["replay"], medians["eager"]
+    phase("graph", f"{label}: a G1 step as one graph replay {r_host:.4f} ms of host to "
+                   f"enqueue, {r_wall:.4f} ms of wall, {r_events:.4f} ms by CUDA events; the "
+                   f"eager step {e_host:.4f} / {e_wall:.4f} / {e_events:.4f} ms ({e_wall / r_wall:.2f} "
+                   f"times the replay's wall; medians of {GRAPH_TURNS} turns of {GRAPH_STEPS} "
+                   f"steps in turns); the two runs equal to the bit: {same}")
+    if not same:
+        fail("graph", f"{label}: the replays and the eager steps part")
+    return dict(replay_host_ms=r_host, replay_wall_ms=r_wall, replay_events_ms=r_events,
+                eager_host_ms=e_host, eager_wall_ms=e_wall, eager_events_ms=e_events,
+                steps=GRAPH_STEPS, turns=GRAPH_TURNS, equal_to_the_bit=same)
+
+
+def check_graph_share(name, since):
+    """The share of the G1 steps on the card that ran as graph replays in
+    the counters' increase ``since``; fails below GRAPH_SHARE."""
+    replays = since.get("graph.step_replays", 0)
+    eager = since.get("graph.step_eager", 0)
+    share = replays / max(replays + eager, 1)
+    phase(name, f"G1 steps as CUDA graph replays: graph.step_replays / (replays + eager) = "
+                f"{replays} / {replays + eager} = {share:.4f}; graph sets captured "
+                f"{since.get('graph.step_captures', 0)}")
+    if share < GRAPH_SHARE:
+        fail(name, f"{share:.4f} of the G1 steps ran as graph replays, below {GRAPH_SHARE}")
+    return dict(replays=replays, eager=eager, share=share,
+                captures=since.get("graph.step_captures", 0))
+
+
 def step_kernel_entries(launches, step_errors, timed, **extra):
     """The step kernels' entries of the kernels line; ``extra`` goes into
     the first one's ``shape``."""
@@ -2033,12 +2107,14 @@ def step_kernel_entries(launches, step_errors, timed, **extra):
 
 def step_launch_counts(model, x, semiaxes, step0, generator):
     """Device kernels a G1 step, a relaxation step and a tick start on the
-    card, at positions ``x`` (torch.profiler)."""
+    card, at positions ``x`` (torch.profiler); the G1 steps follow one
+    another, as in a run."""
     c = model.config
-    state = [(x, generator, semiaxes)]
+    state = [(x, generator, semiaxes), step0]
 
     def g1():
-        state[0] = model._bd_step4(state[0], step0)
+        state[1] += 1
+        state[0] = model._bd_step4(state[0], state[1])
 
     def relax():
         model.relaxation_step((x, generator, semiaxes), 0)
@@ -2345,6 +2421,7 @@ def main():
     from genome_cycle_tpu_torch.ops import _build
     from genome_cycle_tpu_torch.ops import pair_kernels as pk
     from genome_cycle_tpu_torch.store import MemoryStore
+    from genome_cycle_tpu_torch.utils import tracing
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2404,7 +2481,9 @@ def main():
         if (n, coarse) != (EXPECTED_PARTICLES, EXPECTED_COARSE):
             fail("prepare", f"{n} particles and {coarse} coarse beads, expected "
                             f"{EXPECTED_PARTICLES} and {EXPECTED_COARSE}")
+        graph_before = tracing.counters()
         final = run_interphase(store, log=run_log, device=device, timings=timings)
+        graph_share = check_graph_share("check", tracing.counters_since(graph_before))
         transition_prometaphase(store, log=run_log)
         metaphase = run_prometaphase(store, log=run_log, device=device, timings=timings)
         main_step_launches = kernel_launches(counted)
@@ -2558,6 +2637,13 @@ def main():
         time_them=True)
     for name in STEP_KERNELS:
         step_timed[name][f"ensemble of {REPLICAS}"] = ens_timed[name]
+    graph_timed = {
+        "59,610 beads after G1": time_graph_step(
+            "59,610 beads after G1", model, x_dev["59,610 beads after G1"], semi_final, steps),
+        f"ensemble of {REPLICAS}": time_graph_step(
+            f"{REPLICAS} x {ensemble['n']:,} beads stacked after G1", ens_model, x_ens,
+            torch.as_tensor(ensemble["semiaxes"], device=device), ens_icfg.steps),
+    }
     cold = InterphaseModel(dataclasses.replace(icfg, temperature=0.0),
                            design_arrays(design, icfg), EngineSettings(), device)
     cold.update_bound(float(x_dev["59,610 beads after relaxation"].abs().max()))
@@ -2651,6 +2737,7 @@ def main():
         "candidates": main_shape["candidates"],
         "library_ms": None,
         "shapes": timed,
+        "g1_graph": dict(main_path=graph_share, timed=graph_timed),
     }] + step_kernel_entries(main_step_launches, step_errors, step_timed,
                              device_launches_per_call=counted)
         + [mitotic_kernel_entry(main_step_launches["mitotic_chunk"], mitotic_timed),

@@ -74,6 +74,13 @@
 //    synchronisation to learn how many rows are real, and a sentinel row is
 //    never a home bead (its cell_start[c + 1] would lie past the end).  The
 //    caller zeroes the rows that are not written.
+// 7. The step's scalars by value or from the card.  e_a, 1/d_a^2, e_b, 1/d_b^2
+//    change with the core scale every G1 step; a CUDA graph of the step would
+//    freeze them as by-value arguments.  So a launch may instead name a table
+//    of per-step rows (kStepRow floats a row, the first four these) and the
+//    index of the row to read, both in device memory
+//    (ops/pair_kernels.py::StepScalars); the rest kernel of the same step
+//    advances the index (csrc/step_rest.cu).
 //
 // ab_pair_forces_thread_per_bead_kernel is the first version (one thread per
 // sorted bead walking its ranges in global memory, result in sorted order).
@@ -94,6 +101,7 @@ constexpr int kWiden = 1;         // a short segment gives its beads more lanes
 constexpr int kUnroll = 4;        // candidates a lane takes per turn of its loop
 constexpr int kMinBlocks = 1;     // blocks an SM must hold (caps the registers)
 constexpr int kRun = kBlock / kLanes;   // sorted beads a block owns
+constexpr int kStepRow = 16;      // floats a row of the per-step table (item 7)
 
 constexpr int log2_of(int v) { return v <= 1 ? 0 : 1 + log2_of(v / 2); }
 constexpr int kLanesShift = log2_of(kLanes);
@@ -211,6 +219,8 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
                            int begin, int end,                    // home range, sorted rows
                            int nx, int ny, int nz,
                            float e_a, float inv_da2, float e_b, float inv_db2,
+                           const float* __restrict__ step_rows,   // (K, kStepRow) or null
+                           const int* __restrict__ step_index,    // the row to read
                            float* __restrict__ forces,            // (n, 3); bead order
                            float* __restrict__ energy) {          // (n) bead order, or unused
     __shared__ __align__(16) float4 s_xyz[2][kTile];
@@ -224,6 +234,13 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
     const int run_begin = begin + static_cast<int>(blockIdx.x) * kRun;
     const int run_end = min(home_end, run_begin + kRun);
 
+    if (step_rows != nullptr) {
+        const float* row = step_rows + static_cast<long long>(kStepRow) * *step_index;
+        e_a = row[0];
+        inv_da2 = row[1];
+        e_b = row[2];
+        inv_db2 = row[3];
+    }
     const PairConstants pair = {e_a, inv_da2, e_b, inv_db2,
                                 6.0f * e_a * inv_da2, 24.0f * e_b * inv_db2,
                                 // Both cores vanish where r2/d^2 >= 1 for the
@@ -425,16 +442,39 @@ extern "C" int ab_pair_forces_launch(const void* xyz, const void* ab,
             static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
             static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
             static_cast<const long long*>(order),
-            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
+            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2, nullptr, nullptr,
             static_cast<float*>(forces), static_cast<float*>(energy));
     } else {
         ab_pair_forces_cell_kernel<false><<<grid, block, 0, s>>>(
             static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
             static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
             static_cast<const long long*>(order),
-            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
+            begin, end, nx, ny, nz, e_a, inv_da2, e_b, inv_db2, nullptr, nullptr,
             static_cast<float*>(forces), nullptr);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same kernel, forces only, with e_a, 1/d_a^2, e_b, 1/d_b^2 read on the
+// card from row *step_index of step_rows (item 7): a launch that a CUDA graph
+// can replay step after step.
+extern "C" int ab_pair_forces_rows_launch(const void* xyz, const void* ab,
+                                          const void* cell_id, const void* cell_start,
+                                          const void* order,
+                                          int begin, int end, int nx, int ny, int nz,
+                                          const void* step_rows, const void* step_index,
+                                          void* forces, void* stream) {
+    if (end <= begin) return 0;
+    if (step_rows == nullptr || step_index == nullptr) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid((end - begin + kRun - 1) / kRun);
+    ab_pair_forces_cell_kernel<false><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
+        static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
+        static_cast<const long long*>(order), begin, end, nx, ny, nz,
+        0.0f, 0.0f, 0.0f, 0.0f, static_cast<const float*>(step_rows),
+        static_cast<const int*>(step_index), static_cast<float*>(forces), nullptr);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,15 @@
 // moves the semiaxes by the wall ODE a + rate (reaction - spring a).  Two
 // launches give the same bits.
 //
+// The scalars that change every G1 step (the bond scale's s^2 and s, the
+// wall's e_a, 1/d_a^2, e_b, 1/d_b^2 at the core scale) come by value, or, so
+// that a CUDA graph of the step can replay it, from row *step_index of a
+// table on the card (ops/pair_kernels.py::StepScalars, kStepRow floats a row,
+// the pair kernel's four first): the last block of the last replica to finish
+// (a second ticket, tickets[R], where R > 1) then advances the index for the
+// next step.
+// Every block has read the row before it takes its ticket.
+//
 // drift_limit_kernel and bd_update_kernel are the update alone
 // (ops/integrator.py::bd_update): with a displacement limit (the relaxation's
 // spacestep) the first takes each replica's largest |mu F| (a max: exact in
@@ -122,6 +131,9 @@ struct RestArgs {
     unsigned* tickets;                 // (R), 0 between launches
     float* reaction;                   // (R, 3) or null
     float* energy;                     // (R, 2) bonded, wall; or null
+    // The step's scalars from the card; null step_rows: by value above.
+    const float* step_rows;            // (K, kStepRow)
+    int* step_index;                   // the row to read; advanced by the launch
 };
 
 namespace {
@@ -133,6 +145,7 @@ constexpr int kNucTable = 1024;              // ints of the nucleolar table, at 
 constexpr int kCopy = 8;                     // the table's loads a lane keeps in flight
 constexpr int kUpdateThreads = 256;
 constexpr int kSums = 5;        // reaction x, y, z; bonded energy; wall energy
+constexpr int kStepRow = 16;    // floats a row of the per-step table
 constexpr double kWallEps = 1e-12;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -177,16 +190,17 @@ __device__ __forceinline__ void warp_sum(float* v) {
 
 // The nucleolar terms of the row in slot k of the table into f and the bonded
 // energy, from the block's copies in shared memory: the table and the
-// positions of its rows.
+// positions of its rows; bond_s2, bond_s at the step's bond scale.
 __device__ __forceinline__ void nucleolar_row(const RestArgs& a, int k, const int* table,
-                                              const float* nuc_x, Vec& f, float& energy) {
+                                              const float* nuc_x, float bond_s2, float bond_s,
+                                              Vec& f, float& energy) {
     const int* start = table + a.nuc_rows;
     const int* target = start + a.nuc_rows + 1;
     const int* partner = target + a.nuc_rows;
     const int* targets = partner + a.nuc_partners;
     const Vec p = load3(nuc_x, k);
-    const float k_nuc = a.nuc_k / a.bond_s2;
-    const float l_nuc = a.nuc_l * a.bond_s;
+    const float k_nuc = a.nuc_k / bond_s2;
+    const float l_nuc = a.nuc_l * bond_s;
     for (int e = start[k]; e < start[k + 1]; ++e) {
         const int code = partner[e];
         const Vec d = minus(p, load3(nuc_x, code >= 0 ? code : ~code));
@@ -250,6 +264,18 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
     const double wix = 1.0 / (static_cast<double>(ax) * ax);
     const double wiy = 1.0 / (static_cast<double>(ay) * ay);
     const double wiz = 1.0 / (static_cast<double>(az) * az);
+    // The step's scalars, by value or from the step's row on the card.
+    float bond_s2 = a.bond_s2, bond_s = a.bond_s;
+    float e_a = a.e_a, inv_da2 = a.inv_da2, e_b = a.e_b, inv_db2 = a.inv_db2;
+    if (a.step_rows) {
+        const float* step_row = a.step_rows + static_cast<long long>(kStepRow) * *a.step_index;
+        bond_s2 = step_row[4];
+        bond_s = step_row[5];
+        e_a = step_row[6];
+        inv_da2 = step_row[7];
+        e_b = step_row[8];
+        inv_db2 = step_row[9];
+    }
 
     // ---- the block's nucleolar rows, found by one warp ----------------------
     if (warp == 0) {
@@ -308,28 +334,28 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
             float u;
             if (i + 1 < a.n && a.bond_mask[i]) {
                 const Vec d = minus(p, load3(a.x, row + 1));
-                const float c = semispring(norm2(d), a.bond_k[i] / a.bond_s2,
-                                           a.bond_l[i] * a.bond_s, u);
+                const float c = semispring(norm2(d), a.bond_k[i] / bond_s2,
+                                           a.bond_l[i] * bond_s, u);
                 bonded = scale(c, d);
                 sums[3] += u;
             }
             if (i >= 1 && a.bond_mask[i - 1]) {
                 const Vec d = minus(load3(a.x, row - 1), p);
-                const float c = semispring(norm2(d), a.bond_k[i - 1] / a.bond_s2,
-                                           a.bond_l[i - 1] * a.bond_s, u);
+                const float c = semispring(norm2(d), a.bond_k[i - 1] / bond_s2,
+                                           a.bond_l[i - 1] * bond_s, u);
                 bonded = minus(bonded, scale(c, d));
             }
             if (a.loop_mask) {
                 Vec loop{0.0f, 0.0f, 0.0f};
                 if (i + 2 < a.n && a.loop_mask[i]) {
                     const Vec d = minus(p, load3(a.x, row + 2));
-                    const float k = a.loop_k[i] / a.bond_s2;
+                    const float k = a.loop_k[i] / bond_s2;
                     loop = scale(-k, d);
                     sums[3] += 0.5f * k * norm2(d);
                 }
                 if (i >= 2 && a.loop_mask[i - 2]) {
                     const Vec d = minus(load3(a.x, row - 2), p);
-                    const float k = a.loop_k[i - 2] / a.bond_s2;
+                    const float k = a.loop_k[i - 2] / bond_s2;
                     loop = minus(loop, scale(-k, d));
                 }
                 bonded = plus(bonded, loop);
@@ -337,7 +363,9 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
             // One call a row, the rows of a warp together: called inside the
             // loop over the block's nucleolar rows, a warp's target rows
             // would take their turns one after the other.
-            if (nuc_slot >= 0) nucleolar_row(a, nuc_slot, s_nuc_table, s_nuc_x, bonded, sums[3]);
+            if (nuc_slot >= 0) {
+                nucleolar_row(a, nuc_slot, s_nuc_table, s_nuc_x, bond_s2, bond_s, bonded, sums[3]);
+            }
             f = plus(f, bonded);
         }
 
@@ -359,15 +387,15 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
             float c, u;
             if (d > 0.0f) {
                 const float wa = a.wall_a[i], wb = a.wall_b[i];
-                const float core_a = 1.0f - d2 * a.inv_da2;
-                const float s_b = d2 * a.inv_db2;
+                const float core_a = 1.0f - d2 * inv_da2;
+                const float s_b = d2 * inv_db2;
                 const float s_b2 = s_b * s_b;
                 const float core_b = 1.0f - s_b2 * s_b2;
-                const float ca = core_a > 0.0f ? 6.0f * a.e_a * a.inv_da2 * core_a * core_a : 0.0f;
-                const float ua = core_a > 0.0f ? a.e_a * core_a * core_a * core_a : 0.0f;
+                const float ca = core_a > 0.0f ? 6.0f * e_a * inv_da2 * core_a * core_a : 0.0f;
+                const float ua = core_a > 0.0f ? e_a * core_a * core_a * core_a : 0.0f;
                 const float cb = core_b > 0.0f
-                    ? 24.0f * a.e_b * a.inv_db2 * s_b * s_b2 * core_b * core_b : 0.0f;
-                const float ub = core_b > 0.0f ? a.e_b * core_b * core_b * core_b : 0.0f;
+                    ? 24.0f * e_b * inv_db2 * s_b * s_b2 * core_b * core_b : 0.0f;
+                const float ub = core_b > 0.0f ? e_b * core_b * core_b * core_b : 0.0f;
                 c = wa * ca + wb * cb;
                 u = wa * ua + wb * ub;
             } else {
@@ -448,6 +476,18 @@ __global__ void __launch_bounds__(kThreads) step_rest_kernel(const RestArgs a) {
             }
         }
         a.tickets[r] = 0u;   // ready for the next launch
+        if (a.step_index) {
+            // Every block of every replica has read the step's row before its
+            // ticket, so once the last replica's last block gets here: the
+            // next step's row.  One replica needs no second ticket.
+            if (a.replicas == 1) {
+                *a.step_index += 1;
+            } else if (atomicAdd(&a.tickets[a.replicas], 1u) ==
+                       static_cast<unsigned>(a.replicas - 1)) {
+                a.tickets[a.replicas] = 0u;
+                *a.step_index += 1;
+            }
+        }
     }
 }
 
@@ -504,10 +544,15 @@ extern "C" {
 int step_rest_args_size() { return static_cast<int>(sizeof(RestArgs)); }
 
 // Launches on `stream`, does not synchronise and allocates nothing; `args`
-// is read on the host.  `partials` holds R * step_rest_blocks(N) * 5 floats.
-// Returns cudaGetLastError().
+// is read on the host.  `partials` holds R * step_rest_blocks(N) * 5 floats,
+// `tickets` R + 1 counters.  A launch that reads the step's scalars from the
+// card needs the sums (it advances the index from the last block).  Returns
+// cudaGetLastError().
 int step_rest_launch(const RestArgs* args, void* stream) {
     if (args->n <= 0 || args->replicas <= 0) return 0;
+    if (args->step_rows != nullptr && (args->step_index == nullptr || args->partials == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     const dim3 grid((args->n + kThreads - 1) / kThreads, args->replicas);
     step_rest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
     return static_cast<int>(cudaGetLastError());

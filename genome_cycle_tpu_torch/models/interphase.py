@@ -57,6 +57,7 @@ from ..ops.step_rest import BondRows, NucleolarRows, UpdateRows, WallRows
 from ..ops.wall import wall_forces
 from ..utils import tracing
 from ..utils.logging import progress_line
+from . import g1_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +227,8 @@ class InterphaseModel(nn.Module):
         self.bound = float(settings.dense_bound)
         # Rows of the tick kernel's event buffer, grown when a tick overflows.
         self.tick_capacity = EventCapacity()
+        # The CUDA graphs of the G1 step on the card (models/g1_graph.py).
+        self._step_graph = None
 
     @property
     def device(self):
@@ -411,9 +414,26 @@ class InterphaseModel(nn.Module):
     def _bd_step4(self, carry, step: int, noise=None):
         """Forces at lagged scales, BD update, wall ODE — everything except
         contact accounting (simulation_driver_interphase.cpp:16-63,79-90).
-        On the card everything but the pair force (the bonded terms, the
-        wall, the update and the wall ODE) is one launch of the rest
-        kernel."""
+
+        On a float32 CUDA carry of the cell-range pair path the step is one
+        replay of a CUDA graph of :meth:`_eager_step`'s launches
+        (``models/g1_graph.py``): the returned positions and semiaxes are
+        then the graph's buffers, which the step after next overwrites, so a
+        caller reads or copies them before that.  Anywhere else it is
+        :meth:`_eager_step`."""
+        x = carry[0]
+        if x.device.type == "cuda":
+            if g1_graph.replays(self, x):
+                return g1_graph.graph_step(self, carry, step, noise)
+            tracing.count("graph.step_eager")
+        return self._eager_step(carry, step, noise)
+
+    @torch.no_grad()
+    def _eager_step(self, carry, step: int, noise=None):
+        """The G1 step launched call by call: the CPU's step and the card's
+        yardstick for the graph.  On the card everything but the pair force
+        (the bonded terms, the wall, the update and the wall ODE) is one
+        launch of the rest kernel."""
         x, generator, semiaxes = carry
         c = self.config
         dt = c.timestep

@@ -28,6 +28,10 @@ Three parts:
 - :func:`ab_pair_forces_reference` — the plain version, walking the same
   layout with ragged range expansion; the CPU tests and the on-card comparison
   use it.  ``ops.neighbor.pairwise_forces_dense`` is the layout-free oracle.
+
+:func:`ab_pair_forces_rows` is the kernel with its four scalars read on the
+card from a :class:`StepScalars` row, the form a CUDA graph of the G1 step
+replays (``models/g1_graph.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,21 @@ import torch
 
 from . import _build
 from ..utils import tracing
+
+
+# Floats a row of the per-step table (the sources' kStepRow): the pair
+# kernel's e_a, 1/d_a^2, e_b, 1/d_b^2 in the first four, the rest kernel's
+# s^2, s and the wall's e_a, 1/d_a^2, e_b, 1/d_b^2 in the next six.
+STEP_ROW = 16
+
+
+class StepScalars(NamedTuple):
+    """The scalars of a run of G1 steps on the card, for launches that a
+    CUDA graph replays step after step: the kernels read row ``index[0]`` of
+    ``rows``, and the rest kernel of the step advances ``index`` by one."""
+
+    index: torch.Tensor    # (1,) int32
+    rows: torch.Tensor     # (K, STEP_ROW) float32
 
 
 class CellLayout(NamedTuple):
@@ -218,6 +237,13 @@ def _scratch_for(device, stream: int, nbytes: int):
         held = torch.empty(nbytes, dtype=torch.uint8, device=device)
         _scratch[key] = held
     return held
+
+
+def release_scratch(device, stream: int):
+    """Take the layout's scratch of a card and stream out of the cache and
+    return it (None if there is none): a CUDA graph captured on that stream
+    keeps it for its replays."""
+    return _scratch.pop((torch.device(device).index, stream), None)
 
 
 def build_cell_layout_reference(positions, af, bf, bound: float, cell: float,
@@ -398,10 +424,12 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
 
 def _entry_points():
     """The C launch functions of ``csrc/ab_pair_forces.cu``: the kernel the
-    package runs, and the first version kept as its yardstick."""
+    package runs, the first version kept as its yardstick, and the kernel
+    with its scalars read on the card."""
     lib = _build.load_library("ab_pair_forces")
-    cells, thread_per_bead = (
-        lib.ab_pair_forces_launch, lib.ab_pair_forces_thread_per_bead_launch
+    cells, thread_per_bead, rows = (
+        lib.ab_pair_forces_launch, lib.ab_pair_forces_thread_per_bead_launch,
+        lib.ab_pair_forces_rows_launch,
     )
     if not cells.argtypes:
         # Every pointer and the stream as c_void_p: without argtypes ctypes
@@ -411,8 +439,9 @@ def _entry_points():
                           + [ctypes.c_void_p] * 3)
         thread_per_bead.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + floats
                                     + [ctypes.c_void_p] * 3)
-        cells.restype = thread_per_bead.restype = ctypes.c_int
-    return cells, thread_per_bead
+        rows.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+        cells.restype = thread_per_bead.restype = rows.restype = ctypes.c_int
+    return cells, thread_per_bead, rows
 
 
 def _check_tensor(name, tensor, dtype, shape, device, align):
@@ -515,6 +544,36 @@ def ab_pair_forces(layout: CellLayout, params, with_energy: bool = False,
     energy = energies.sum() if with_energy else forces.new_zeros(())
     return forces, energy
 
+
+
+def ab_pair_forces_rows(layout: CellLayout, scalars: StepScalars):
+    """The forces of :func:`ab_pair_forces` (every row, no energy) on a
+    CUDA layout without padding, e_a, 1/d_a^2, e_b, 1/d_b^2 read by the
+    kernel from the step's row of ``scalars`` on the card: a launch that a
+    CUDA graph replays step after step.  The rows' diameters are checked
+    against the cell where the table is built.  Counts no launch: the
+    graph's replays do."""
+    _check_layout(layout)
+    device = layout.xyz.device
+    if device.type != "cuda" or layout.padded:
+        raise ValueError("the pair kernel reads its scalars on the card only for a CUDA "
+                         "layout without padding")
+    _check_tensor("step index", scalars.index, torch.int32, (1,), device, 4)
+    _check_tensor("step rows", scalars.rows, torch.float32,
+                  (scalars.rows.shape[0], STEP_ROW), device, 16)
+    launch = _entry_points()[2]
+    n = layout.n
+    forces = torch.empty((n, 3), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        status = launch(
+            layout.xyz.data_ptr(), layout.ab.data_ptr(), layout.cell_id.data_ptr(),
+            layout.cell_start.data_ptr(), layout.order.data_ptr(), 0, n, *layout.shape,
+            scalars.rows.data_ptr(), scalars.index.data_ptr(), forces.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"ab_pair_forces kernel launch failed: CUDA error {status}")
+    return forces
 
 
 def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: bool = False):

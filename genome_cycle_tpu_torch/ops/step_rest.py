@@ -30,7 +30,7 @@ from . import _build, integrator, potentials
 from . import wall as wall_ops
 from .bonded import pair_bond_forces, shift_bond_forces
 from .neighbor import pairwise_forces_dense
-from .pair_kernels import _check_tensor
+from .pair_kernels import STEP_ROW, StepScalars, _check_tensor
 from ..utils import tracing
 
 _SUMS = 5   # reaction x, y, z; bonded energy; wall energy (the source's kSums)
@@ -128,12 +128,14 @@ class _RestArgs(ctypes.Structure):
         ("semiaxes_out", ctypes.c_void_p),
         ("partials", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
         ("reaction", ctypes.c_void_p), ("energy", ctypes.c_void_p),
+        ("step_rows", ctypes.c_void_p), ("step_index", ctypes.c_void_p),
     ]
 
 
-# One ticket counter a replica for each card and stream, zero between
-# launches (the last block of a launch resets its replica's).  Launches on
-# one stream run one after the other, so they never share a ticket at once.
+# One ticket counter a replica and one for the launch (the replicas' last
+# blocks) for each card and stream, zero between launches (the last block of
+# a launch resets its replica's).  Launches on one stream run one after the
+# other, so they never share a ticket at once.
 _tickets: dict = {}
 
 
@@ -156,10 +158,30 @@ def _library():
 def _tickets_for(device, stream, replicas):
     key = (device, stream)
     held = _tickets.get(key)
-    if held is None or held.shape[0] < replicas:
-        held = torch.zeros(max(replicas, 8), dtype=torch.int32, device=device)
+    if held is None or held.shape[0] < replicas + 1:
+        held = torch.zeros(max(replicas + 1, 8), dtype=torch.int32, device=device)
         _tickets[key] = held
     return held
+
+
+def release_tickets(device, stream):
+    """Take the tickets of a card and stream out of the cache and return
+    them (None if there are none): a CUDA graph captured on that stream
+    keeps them for its replays."""
+    return _tickets.pop((torch.device(device), stream), None)
+
+
+def bond_scalars(scale: float):
+    """(s^2, s) at bond scale s, in float64, as the rest kernel takes them."""
+    s = float(scale)
+    return s * s, s
+
+
+def wall_scalars(params: dict):
+    """(e_a, 1/d_a^2, e_b, 1/d_b^2) of the wall's parameter dict, in
+    float64, as the rest kernel takes them."""
+    return (float(params["a_energy"]), 1.0 / (float(params["a_diameter"]) ** 2),
+            float(params["b_energy"]), 1.0 / (float(params["b_diameter"]) ** 2))
 
 
 def _rows(name, tensor, dtype, n, device):
@@ -229,7 +251,9 @@ def _stacked(positions):
 
 def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
                 wall: Optional[WallRows] = None, update: Optional[UpdateRows] = None,
-                with_energy: bool = False, in_place: bool = False) -> RestResult:
+                with_energy: bool = False, in_place: bool = False,
+                scalars: Optional[StepScalars] = None, out=None,
+                semiaxes_out=None) -> RestResult:
     """One launch of ``step_rest_kernel`` on CUDA float32 tensors.
 
     ``forces`` (of the positions' shape, or None for zeros) plus the chain
@@ -244,6 +268,13 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
     launch's last block, found by a ticket counter kept for the current
     stream: a launch must not run beside another launch on the same stream
     (as it cannot, unless the stream's work is reordered by hand).
+
+    With ``scalars`` the kernel reads the bond scale's s^2, s and the wall's
+    e_a, 1/d_a^2, e_b, 1/d_b^2 from the step's row on the card, not from
+    ``bonds.scale`` and ``wall.params``, and advances the row's index: the
+    form a CUDA graph of the G1 step replays (it needs the wall).  ``out``
+    and ``semiaxes_out`` name the buffers the new positions and semiaxes go
+    to, in place of new ones.
     """
     device = positions.device
     if device.type != "cuda":
@@ -269,10 +300,12 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
         if bonds.loop_mask is not None:
             args.loop_mask = _rows("loop mask", bonds.loop_mask, torch.bool, n, device)
             args.loop_k = _rows("loop springs", bonds.loop_spring, torch.float32, n, device)
-        args.bond_s2, args.bond_s = s * s, s
+        args.bond_s2, args.bond_s = bond_scalars(s)
         if bonds.nucleolar is not None:
             _nucleolar_args(args, bonds.nucleolar, device)
-    reaction = semiaxes_out = None
+    if semiaxes_out is not None and (update is None or wall is None):
+        raise ValueError("new semiaxes come only from the update with the wall")
+    reaction = None
     # No bead launches no block: the sums are zero (a rank may own no bead).
     alloc = torch.empty if n else torch.zeros
     if wall is not None:
@@ -282,9 +315,7 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
         args.wall_a = _rows("wall weights a", wall.a_mix, torch.float32, n, device)
         args.wall_b = _rows("wall weights b", wall.b_mix, torch.float32, n, device)
         p = wall.params
-        args.e_a, args.e_b = float(p["a_energy"]), float(p["b_energy"])
-        args.inv_da2 = 1.0 / (float(p["a_diameter"]) ** 2)
-        args.inv_db2 = 1.0 / (float(p["b_diameter"]) ** 2)
+        args.e_a, args.inv_da2, args.e_b, args.inv_db2 = wall_scalars(p)
         args.packing_spring = float(p["packing_spring"])
         reaction = alloc(semi_shape, dtype=torch.float32, device=device)
         args.reaction = reaction.data_ptr()
@@ -298,7 +329,9 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
         if wall is not None:
             args.ode_rate = float(update.ode_rate)
             args.spring = (ctypes.c_float * 3)(*(float(v) for v in update.spring))
-            if n:
+            if semiaxes_out is not None:
+                _check_tensor("semiaxes out", semiaxes_out, torch.float32, semi_shape, device, 4)
+            elif n:
                 semiaxes_out = torch.empty_like(reaction)
             else:
                 springs = torch.tensor(update.spring, dtype=torch.float32, device=device)
@@ -308,9 +341,18 @@ def launch_rest(positions, forces=None, bonds: Optional[BondRows] = None,
         if forces is None:
             raise ValueError("in place needs a force buffer")
         out = forces
+    elif out is not None:
+        _check_tensor("out", out, torch.float32, shape, device, 4)
     else:
         out = torch.empty_like(positions)
     args.out = out.data_ptr()
+    if scalars is not None:
+        if wall is None:
+            raise ValueError("the step's scalars from the card need the wall")
+        _check_tensor("step index", scalars.index, torch.int32, (1,), device, 4)
+        _check_tensor("step rows", scalars.rows, torch.float32,
+                      (scalars.rows.shape[0], STEP_ROW), device, 16)
+        args.step_rows, args.step_index = scalars.rows.data_ptr(), scalars.index.data_ptr()
     energy = None
     if with_energy:
         energy = alloc((replicas, 2), dtype=torch.float32, device=device)

@@ -19,17 +19,23 @@ launches, reruns and store bytes go.
 - :func:`sync` ``(name)`` marks a place where the port reads a device
   value on the host: it counts ``sync.<name>`` and, when tracing is on, is a
   span of that name.
+- :func:`uncounted` leaves the counters as they were before the block: the
+  capture of a CUDA graph and its warm-up run the wrappers without a step.
 
 The names follow the layers of the G1 step and the stages: ``g1.step``
 (with ``layout``, ``pair``, ``noise``, ``rest`` inside), ``tick``,
 ``merge``, ``dump``, ``g1.frame``, ``mitotic.chunk``, ``mitotic.frame``,
 ``store``; the counters ``launch.<kernel>``, ``contact.tick_reruns``,
-``window.merge_reruns``, ``store.bytes``, ``store.files`` and ``sync.*``.
+``window.merge_reruns``, ``store.bytes``, ``store.files``, ``sync.*`` and
+those of the G1 step's CUDA graph, ``graph.step_replays``,
+``graph.step_captures`` and ``graph.step_eager`` (a replay counts the
+launches it runs under ``launch.<kernel>`` too).
 The state is the process's, on the one host thread that drives the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -122,6 +128,17 @@ def count(name: str, n: int = 1):
     """Add ``n`` to counter ``name``."""
     counts = _state.counts
     counts[name] = counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Every counter as it was before the block, after it."""
+    saved = dict(_state.counts)
+    try:
+        yield
+    finally:
+        _state.counts.clear()
+        _state.counts.update(saved)
 
 
 def sync(name: str):

@@ -25,7 +25,10 @@ stages run them, a chunk of ``sampling_interval`` steps in one launch of the
 chunk kernel (ms a step, launches and busy share a chunk, the kernel alone,
 two runs compared to the bit); and so is the
 G1 step of an ensemble of R = 1, 2, 4 and 8 replicas of the nucleus in
-lock-step (one launch of the pair kernel a step for all of them).  Prints one JSON object and writes it to
+lock-step (one launch of the pair kernel a step for all of them).  A G1 step
+as one replay of its CUDA graph is timed against the eager step, in turns,
+at 59,610 and 4 x 59,610 beads (``chip_smoke.time_graph_step``: host clock
+and CUDA events).  Prints one JSON object and writes it to
 ``DIR/profile_torch_step.json`` (default ``build/profile``).  Needs a CUDA card.
 """
 
@@ -390,6 +393,15 @@ def main():
     tick_window = profile_window(lambda: model.contact_events_tick(state[0], step0), 10, tick_ms)
     tick_window.pop("by_kernel")
     ensemble = ensemble_steps(model, state[0], state[2], step0, n)
+    x_g1, semi_g1 = state[0].clone(), state[2].clone()
+    stacked = convert.ensemble_state_from_numpy(
+        [x_g1.cpu().numpy()] * 4, [semi_g1.cpu().numpy()] * 4, seeds=range(1, 5), device=device)
+    model.update_bound(float(x_g1.abs().max()))
+    graph_vs_eager = {
+        "59,610": chip_smoke.time_graph_step("59,610 beads", model, x_g1, semi_g1, step0),
+        "4 x 59,610": chip_smoke.time_graph_step("4 x 59,610 beads", model, stacked[0],
+                                                 stacked[2], step0),
+    }
     mitotic = mitotic_steps(store, config, state[0], device, n)
 
     tick_every = c.contactmap_update_interval
@@ -424,6 +436,7 @@ def main():
             ],
         },
         "ensemble_g1_steps": ensemble,
+        "g1_step_graph_replay_vs_eager": graph_vs_eager,
         "mitotic_steps": mitotic,
     }
     text = json.dumps(result, indent=1)

@@ -1027,3 +1027,143 @@ def test_mitotic_chunk_kernel_refuses_a_system_past_its_capacity(cuda_device, tm
         mitotic.run_chunk(x.double(), terms, model.mobility, noise, 1.0, 1e-4)
     with pytest.raises(ValueError):
         mitotic.run_chunk(x, terms, model.mobility, noise.cpu(), 1.0, 1e-4)
+
+
+# ---- the G1 step as one CUDA graph replay (models/g1_graph.py) ---------------
+
+G1_FRAME = 20      # sampling_interval and tick interval: ticks and frames at 20, 40
+G1_STEPS = 45
+
+
+def _g1_model(device, replicas, n=3000, seed=3):
+    """A chain of ``n`` beads with loops, ten NOR bonds onto ten nucleolar
+    particles (a droplet among them), on the card through the cell-range
+    path; ``replicas`` random-walk starts inside the wall, their generators
+    seeded apart."""
+    from genome_cycle_tpu_torch.config import InterphaseConfig
+    from genome_cycle_tpu_torch.models import interphase as tinter
+
+    chain = n - 10
+    rng = np.random.default_rng(seed)
+    af = (np.arange(n) % 2).astype(np.float64)
+    af[chain:] = 0.0
+    bonded = np.arange(n) < chain - 1
+    looped = np.arange(n) < chain - 2
+    rows = np.arange(chain - 1)
+    nuc = np.stack([np.arange(10) * (chain // 10), chain + np.arange(10)], 1)
+    arrays = dict(
+        af=af, bf=1.0 - af, mobility=np.ones(n),
+        bond_pairs=np.stack([rows, rows + 1], 1), bond_spring=np.full(chain - 1, 40.0),
+        bond_length=np.full(chain - 1, 0.05),
+        loop_pairs=np.stack([rows[:-1], rows[:-1] + 2], 1), loop_spring=np.full(chain - 2, 5.0),
+        bond_mask=bonded, bond_k_row=np.where(bonded, 40.0, 0.0),
+        bond_l_row=np.where(bonded, 0.05, 0.0), loop_mask=looped,
+        loop_k_row=np.where(looped, 5.0, 0.0), nuc_bonds=nuc.astype(np.int64),
+        nuc_targets=np.unique(nuc[:, 1]).astype(np.int64))
+    config = InterphaseConfig(sampling_interval=G1_FRAME, contactmap_update_interval=G1_FRAME)
+    model = tinter.InterphaseModel(config, arrays, tinter.EngineSettings(brute_force_threshold=0),
+                                   device)
+    walks = []
+    for _ in range(replicas):
+        walk = np.cumsum(rng.normal(scale=0.03, size=(n, 3)), axis=0)
+        walks.append(1.2 * walk / np.abs(walk).max())
+    x = torch.as_tensor(np.stack(walks) if replicas > 1 else walks[0], dtype=torch.float32,
+                        device=device)
+    model.update_bound(float(x.abs().max()))
+    semiaxes = torch.as_tensor(config.wall_semiaxes_init, dtype=torch.float32, device=device)
+    if replicas > 1:
+        semiaxes = semiaxes.expand(replicas, 3).contiguous()
+    return model, x, semiaxes
+
+
+def _generators(device, replicas, seed=11):
+    gens = [torch.Generator(device=device).manual_seed(seed + r) for r in range(replicas)]
+    return gens if replicas > 1 else gens[0]
+
+
+def _states(generators):
+    gens = generators if isinstance(generators, list) else [generators]
+    return [g.get_state() for g in gens]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 4])
+def test_g1_graph_matches_the_eager_step_to_the_bit_on_handed_in_noise(cuda_device, replicas):
+    """45 G1 steps on handed-in noise, through two ticks and two frames, the
+    grid's bound moved at the first frame (one capture anew): the replays
+    give the eager step's positions and semiaxes to the bit, and the ticks
+    its pairs; 45 replays, 2 captures, no eager step."""
+    model, x, semiaxes = _g1_model(cuda_device, replicas)
+    noise_gen = torch.Generator(device=cuda_device).manual_seed(5)
+    graph = eager = (x, _generators(cuda_device, replicas), semiaxes)
+    before = tracing.counters()
+    for step in range(1, G1_STEPS + 1):
+        noise = torch.randn(x.shape, generator=noise_gen, device=cuda_device)
+        graph = model._bd_step4(graph, step, noise)
+        eager = model._eager_step(eager, step, noise)
+        assert torch.equal(graph[0], eager[0]) and torch.equal(graph[2], eager[2]), step
+        if step % G1_FRAME == 0:
+            assert _pair_set(model.contact_events_tick(graph[0], step)) == _pair_set(
+                model.contact_events_tick(eager[0], step))
+            if step == G1_FRAME:
+                model.bound += 1.0
+    assert float((graph[0] - x).abs().max()) > 1e-3
+    since = tracing.counters_since(before)
+    assert since["graph.step_replays"] == G1_STEPS
+    assert since["graph.step_captures"] == 2
+    assert since.get("graph.step_eager", 0) == 0
+    for kernel in ("ab_pair_forces", "cell_layout", "step_rest"):
+        assert since["launch." + kernel] >= G1_STEPS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 4])
+def test_g1_graph_draws_what_the_generators_draw_eagerly(cuda_device, replicas):
+    """Replays that draw their own noise follow the eager steps on generators
+    seeded alike to the bit over 45 steps, and leave the generators in the
+    eager run's states; two replays from one state draw different normals."""
+    model, x, semiaxes = _g1_model(cuda_device, replicas)
+    gens_graph, gens_eager = (_generators(cuda_device, replicas) for _ in range(2))
+    graph, eager = (x, gens_graph, semiaxes), (x, gens_eager, semiaxes)
+    for step in range(1, G1_STEPS + 1):
+        graph = model._bd_step4(graph, step)
+        eager = model._eager_step(eager, step)
+    assert torch.equal(graph[0], eager[0]) and torch.equal(graph[2], eager[2])
+    for a, b in zip(_states(gens_graph), _states(gens_eager)):
+        assert torch.equal(a, b)
+    start = (graph[0].clone(), gens_graph, graph[2].clone())
+    first = model._bd_step4(start, G1_STEPS + 1)[0].clone()
+    second = model._bd_step4(start, G1_STEPS + 1)[0]
+    assert not torch.equal(first, second)
+    assert torch.isfinite(second).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 4])
+def test_g1_graph_resumes_from_a_checkpoint_as_the_eager_step_does(cuda_device, replicas):
+    """A checkpoint after 30 replays (positions, semiaxes, generator states
+    on the host), resumed into the same generators through replays and into
+    fresh ones through the eager step, continues as the uninterrupted run
+    does, to the bit."""
+    model, x, semiaxes = _g1_model(cuda_device, replicas)
+    gens = _generators(cuda_device, replicas)
+    state = (x, gens, semiaxes)
+    for step in range(1, 31):
+        state = model._bd_step4(state, step)
+    saved = (state[0].cpu(), state[2].cpu(), _states(gens))
+    for step in range(31, G1_STEPS + 1):
+        state = model._bd_step4(state, step)
+    through = (state[0].clone(), state[2].clone())
+
+    def resumed(generators):
+        for g, s in zip(generators if isinstance(generators, list) else [generators], saved[2]):
+            g.set_state(s)
+        return (saved[0].to(cuda_device), generators, saved[1].to(cuda_device))
+
+    again = resumed(gens)
+    eager = resumed(_generators(cuda_device, replicas, seed=99))
+    for step in range(31, G1_STEPS + 1):
+        again = model._bd_step4(again, step)
+        eager = model._eager_step(eager, step)
+    for got in (again, eager):
+        assert torch.equal(got[0], through[0]) and torch.equal(got[2], through[1])
