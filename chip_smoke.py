@@ -11,25 +11,23 @@ prints no result.  It
 1. names the card (``nvidia-smi``) and the torch/CUDA versions;
 2. builds the port's CUDA sources from ``genome_cycle_tpu_torch/csrc`` into
    ``build/``, one ``nvcc`` a source, all at once, and prints what ``ptxas``
-   says about their kernels: the pair-force kernel the package runs and its
-   first version, kept as a yardstick (``ab_pair_forces.cu``); the contact
-   tick (``contact_tick.cu``); the rest of a step — bonds, wall, update — and
-   the update alone (``step_rest.cu``); the mitotic stages' chunk of steps
-   (``mitotic_chunk.cu``); the cell layout (``cell_layout.cu``);
-3. holds the kernel's wrapper against its plain PyTorch version on the card
-   (and the first version too): at 300 beads, at inputs made for the kernel's
-   control flow, and at three structures of the main path's 59,610 particles;
-   checks that two launches give the same bits; and times new and first
-   version in turns; the layout kernels (``cell_layout.cu``) against their
-   plain version, bit for bit, after G1 and on the ensemble's four replicas
-   stacked, both timed; then phase "step kernels": the tick (also forced to
-   overflow and run again, and its first version) with the half-stencil
-   candidates a row, mean and largest, the rest kernel with its wall reaction
-   and the nucleolar rows, the update kernel and the fused G1 launch against
-   their plain versions at the same three structures and on the ensemble's
-   four replicas stacked, timed beside their bounds (the tick and its first
-   version in turns); 200 G1 steps at T = 0 through the kernels against the
-   plain composition, step for step; and the device kernels a G1 step, a
+   says about their kernels: the pair-force kernel (``ab_pair_forces.cu``);
+   the contact tick (``contact_tick.cu``); the rest of a step — bonds, wall,
+   update — and the update alone (``step_rest.cu``); the mitotic stages'
+   chunk of steps (``mitotic_chunk.cu``); the cell layout (``cell_layout.cu``);
+3. holds the kernel's wrapper against its plain PyTorch version on the card:
+   at 300 beads, at inputs made for the kernel's control flow, and at three
+   structures of the main path's 59,610 particles; checks that two launches
+   give the same bits; and times the kernel; the layout kernels
+   (``cell_layout.cu``) against their plain version, bit for bit, after G1
+   and on the ensemble's four replicas stacked, both timed; then phase "step
+   kernels": the tick (also forced to overflow and run again) with the
+   half-stencil candidates a row, mean and largest, the rest kernel with its
+   wall reaction and the nucleolar rows, the update kernel and the fused G1
+   launch against their plain versions at the same three structures and on
+   the ensemble's four replicas stacked, timed beside their bounds; 200 G1
+   steps at T = 0 through the kernels against the plain composition, step
+   for step; and the device kernels a G1 step, a
    relaxation step and a tick start (``torch.profiler``); phase "graph": a
    G1 step as one replay of its CUDA graph against the eager step, in turns,
    at 59,610 and 4 x 59,610 beads, by host clock and CUDA events, the two
@@ -303,14 +301,13 @@ class Errors:
 
 
 def compare(name, layout, params, pk, errors):
-    """The kernel and its first version against the plain version on the same
-    layout, and the kernel against itself: two launches must give the same
-    bits.  Fails beyond the stated tolerances; `errors` takes the kernel's."""
+    """The kernel against the plain version on the same layout, and against
+    itself: two launches must give the same bits.  Fails beyond the stated
+    tolerances; `errors` takes the kernel's."""
     f_k, e_k = pk.ab_pair_forces(layout, params, with_energy=True)
     f_again, e_again = pk.ab_pair_forces(layout, params, with_energy=True)
     f_only, _ = pk.ab_pair_forces(layout, params, with_energy=False)
     f_only_again, _ = pk.ab_pair_forces(layout, params, with_energy=False)
-    f_1, e_1 = pk._ab_pair_forces_thread_per_bead(layout, params, with_energy=True)
     torch.cuda.synchronize()
     f_p, e_p = pk.ab_pair_forces_reference(layout, params, with_energy=True)
     torch.cuda.synchronize()
@@ -321,21 +318,17 @@ def compare(name, layout, params, pk, errors):
         fail(name, "force-only and force+energy kernels disagree")
     fmax = float(f_p.abs().max())
     e_p = float(e_p)
-    for label, f, e in (("kernel", f_k, float(e_k)), ("first version", f_1, float(e_1))):
-        err = float((f - f_p).abs().max())
-        e_rel = abs(e - e_p) / max(abs(e_p), 1e-30) if e_p else abs(e)
-        phase(name, f"{label}: n={layout.n} max|dF|={err:.3e} max|F|={fmax:.3e} "
-                    f"E={e:.6e} plain E={e_p:.6e} rel={e_rel:.2e}")
-        if not np.isfinite(err) or err > FORCE_TOLERANCE * max(fmax, 1.0):
-            fail(name, f"{label}: force error {err} beyond {FORCE_TOLERANCE} * max(|F|, 1)")
-        if not e_rel <= ENERGY_TOLERANCE:
-            fail(name, f"{label}: energy differs by {e_rel} relative, limit {ENERGY_TOLERANCE}")
-        if label == "kernel":
-            errors.max_abs = max(errors.max_abs, err)
-            errors.max_rel = max(errors.max_rel, err / max(fmax, 1.0))
-    err = float((f_k - f_1).abs().max())
-    if err > FORCE_TOLERANCE * max(fmax, 1.0):
-        fail(name, f"kernel and first version differ by {err}")
+    e = float(e_k)
+    err = float((f_k - f_p).abs().max())
+    e_rel = abs(e - e_p) / max(abs(e_p), 1e-30) if e_p else abs(e)
+    phase(name, f"kernel: n={layout.n} max|dF|={err:.3e} max|F|={fmax:.3e} "
+                f"E={e:.6e} plain E={e_p:.6e} rel={e_rel:.2e}")
+    if not np.isfinite(err) or err > FORCE_TOLERANCE * max(fmax, 1.0):
+        fail(name, f"kernel: force error {err} beyond {FORCE_TOLERANCE} * max(|F|, 1)")
+    if not e_rel <= ENERGY_TOLERANCE:
+        fail(name, f"kernel: energy differs by {e_rel} relative, limit {ENERGY_TOLERANCE}")
+    errors.max_abs = max(errors.max_abs, err)
+    errors.max_rel = max(errors.max_rel, err / max(fmax, 1.0))
 
 
 def small_inputs(pk, device):
@@ -1811,9 +1804,6 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
                 f"at most (the 99th percentile "
                 f"{float(torch.quantile(per_row.double(), 0.99)):.0f}); the fullest cell holds "
                 f"{int(cell_rows.max())} rows")
-    first = contact._contact_events_launched(layout, cutoff, first_version=True)
-    if not torch.equal(pair_keys(first), keys):
-        fail(name, "the tick kernel's first version lists other pairs than the plain search")
     for rows in (None, TICK_FORCED_ROWS):
         counted = kernel_launches()
         capacity = contact.EventCapacity(rows)
@@ -1908,11 +1898,11 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
     count = torch.zeros(1, dtype=torch.int32, device=x.device)
     cutoff2 = float(cutoff) * float(cutoff)
 
-    def tick_kernel(first_version=False):
+    def tick_kernel():
         count.zero_()
-        contact._tick_launch(layout, cutoff2, 0, layout.n, buffer, count, first_version)
+        contact._tick_launch(layout, cutoff2, 0, layout.n, buffer, count)
 
-    tick_first_ms, tick_ms = time_in_turns(lambda: tick_kernel(True), tick_kernel, 20)
+    tick_ms = time_ms(tick_kernel, 20)
     tick_wrapper_ms = time_ms(
         lambda: contact.contact_events(layout, cutoff, capacity=capacity), 20)
     tick_plain_ms = time_ms(lambda: contact.contact_events_reference(layout, cutoff), 2)
@@ -1938,7 +1928,7 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
                              events=len(want), half_stencil_candidates=candidates, rows=real,
                              candidates_a_row_mean=candidates / max(real, 1),
                              candidates_a_row_max=int(per_row.max()),
-                             wrapper_ms=tick_wrapper_ms, first_version_ms=tick_first_ms),
+                             wrapper_ms=tick_wrapper_ms),
         "step_rest": dict(ms=rest_ms, plain_ms=rest_plain_ms, bound_ms=rest_bytes,
                           bound_by="bytes", replicas=replicas, beads=n,
                           launch="bonds + nucleolar rows + wall + update + ODE"),
@@ -1946,8 +1936,7 @@ def check_step_kernels(label, model, x, core, bond, semiaxes, step_errors, time_
                           bound_by="bytes", replicas=replicas, beads=n,
                           launch="with the displacement limit"),
     }
-    phase("time", f"{label}: tick kernel {tick_ms:.4f} ms (its first version, in turns, "
-                  f"{tick_first_ms:.4f} ms: {tick_first_ms / tick_ms:.2f} times), its wrapper "
+    phase("time", f"{label}: tick kernel {tick_ms:.4f} ms, its wrapper "
                   f"with the count read back {tick_wrapper_ms:.4f} ms ({len(want)} pairs, {candidates} "
                   f"half-stencil candidates; plain {tick_plain_ms:.2f} ms, bound "
                   f"{max(tick_ops, tick_bytes):.5f} ms); rest kernel, G1 launch {rest_ms:.4f} ms "
@@ -2099,8 +2088,6 @@ def step_kernel_entries(launches, step_errors, timed, **extra):
             "shape": {k: v for k, v in t.items()
                       if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
         })
-        if "first_version_ms" in t:
-            entries[-1]["previous_ms"] = t["first_version_ms"]
     entries[list(STEP_KERNELS).index("step_rest")]["shape"].update(extra)
     return entries
 
@@ -2442,8 +2429,7 @@ def main():
                     " with energy" if entry.lastindex == 2 and entry.group(2) == "1" else "")
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 phase("build", f"{kernel}: {line.strip()}")
-                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line \
-                        and "thread_per_bead" not in kernel:
+                if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                     fail("build", f"{kernel} spills registers")
 
     if args.production:
@@ -2566,11 +2552,9 @@ def main():
         "59,610 beads after G1", model, torch.as_tensor(x_final, dtype=torch.float32,
                                                          device=device), pk)}
 
-    # New kernel and first version in turns within this run: two runs may land
-    # on two cards.  The bound counts what these inputs need: the distance
-    # test for every candidate, the rest for the pairs in reach.  Beside it,
-    # the bound of full arithmetic on every candidate.
-    first_version = pk._ab_pair_forces_thread_per_bead
+    # The bound counts what these inputs need: the distance test for every
+    # candidate, the rest for the pairs in reach.  Beside it, the bound of
+    # full arithmetic on every candidate.
     timed = {}
     for label, layout, params in (
         ("before relaxation", layout_of(x_before), p_init),
@@ -2579,18 +2563,14 @@ def main():
     ):
         candidates = pk.candidate_pairs(layout)
         in_reach = pk.pairs_in_reach(layout, params)
-        previous_ms, ms = time_in_turns(
-            lambda: first_version(layout, params), lambda: pk.ab_pair_forces(layout, params), 20)
-        previous_energy, ms_energy = time_in_turns(
-            lambda: first_version(layout, params, True),
-            lambda: pk.ab_pair_forces(layout, params, True), 20)
+        ms = time_ms(lambda: pk.ab_pair_forces(layout, params), 20)
+        ms_energy = time_ms(lambda: pk.ab_pair_forces(layout, params, True), 20)
         plain_ms = time_ms(lambda: pk.ab_pair_forces_reference(layout, params), 2)
         ops_ms = ((OPS_DISTANCE_TEST * candidates + OPS_IN_REACH * in_reach)
                   / PEAK_FP32_FLOPS * 1e3)
         all_ops_ms = OPS_PER_CANDIDATE * candidates / PEAK_FP32_FLOPS * 1e3
         bytes_ms = (32 * n + 12 * n + 4 * layout.num_cells) / PEAK_BYTES_PER_S * 1e3
-        timed[label] = dict(ms=ms, ms_with_energy=ms_energy, previous_ms=previous_ms,
-                            previous_ms_with_energy=previous_energy, plain_ms=plain_ms,
+        timed[label] = dict(ms=ms, ms_with_energy=ms_energy, plain_ms=plain_ms,
                             candidates=candidates, pairs_in_reach=in_reach,
                             bound_ms=max(ops_ms, bytes_ms),
                             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -2598,8 +2578,7 @@ def main():
                             cells=layout.num_cells)
         phase("time", f"{label}: {candidates} candidate pairs, {in_reach} in reach, in "
                       f"{layout.num_cells} cells; kernel {ms:.4f} ms (+energy {ms_energy:.4f} ms), "
-                      f"first version {previous_ms:.4f} ms (+energy {previous_energy:.4f} ms), "
-                      f"{previous_ms / ms:.2f} times the kernel's; plain "
+                      f"plain "
                       f"{plain_ms:.2f} ms, bound {max(ops_ms, bytes_ms):.5f} ms "
                       f"({ops_ms:.5f} operations, {bytes_ms:.5f} bytes; "
                       f"{all_ops_ms:.5f} with every candidate evaluated in full)")
@@ -2729,7 +2708,6 @@ def main():
         "max_abs_err": errors.max_abs,
         "max_rel_err": errors.max_rel,
         "ms": main_shape["ms"],
-        "previous_ms": main_shape["previous_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],

@@ -27,10 +27,7 @@
 // cutoff test needs r2 to about 1e-6 relative at coordinates of 2.4 and
 // distances of 0.15, which the ten mantissa bits of TF32 do not give.
 //
-// Two kernels live here.
-//
-// ab_pair_forces_cell_kernel is the one the package runs.  What it does about
-// what held the first version back:
+// ab_pair_forces_cell_kernel does this:
 //
 // 1. A block owns a run of kRun consecutive sorted beads and works through it
 //    one home cell at a time (a "segment": the beads of the run that share a
@@ -81,11 +78,6 @@
 //    index of the row to read, both in device memory
 //    (ops/pair_kernels.py::StepScalars); the rest kernel of the same step
 //    advances the index (csrc/step_rest.cu).
-//
-// ab_pair_forces_thread_per_bead_kernel is the first version (one thread per
-// sorted bead walking its ranges in global memory, result in sorted order).
-// It is kept, under its own entry point, as the yardstick the new kernel is
-// timed against within one run; the package does not run it.
 
 #include <cuda_runtime.h>
 
@@ -344,80 +336,6 @@ ab_pair_forces_cell_kernel(const float4* __restrict__ xyz,        // (n) x, y, z
     }
 }
 
-constexpr int kThreadsPerBeadBlock = 128;
-
-template <bool kWithEnergy>
-__global__ void __launch_bounds__(kThreadsPerBeadBlock)
-ab_pair_forces_thread_per_bead_kernel(
-        const float4* __restrict__ xyz,       // (n) x, y, z, pad; sorted
-        const float2* __restrict__ ab,        // (n) a, b factors; sorted
-        const int* __restrict__ cell_id,      // (n) flat cell id; sorted
-        const int* __restrict__ cell_start,   // (cells + 1)
-        int n, int nx, int ny, int nz,
-        float e_a, float inv_da2, float e_b, float inv_db2,
-        float* __restrict__ forces,           // (n, 3); sorted order
-        float* __restrict__ energy) {         // (n) or unused
-    const int i = blockIdx.x * kThreadsPerBeadBlock + threadIdx.x;
-    if (i >= n) return;
-
-    const float4 pi = xyz[i];
-    const float2 fi = ab[i];
-    const int c = cell_id[i];
-    const int cz = c % nz;
-    const int cy = (c / nz) % ny;
-    const int cx = c / (nz * ny);
-    const int z_lo = max(cz - 1, 0);
-    const int z_hi = min(cz + 1, nz - 1);
-
-    const float ka = 6.0f * e_a * inv_da2;
-    const float kb = 24.0f * e_b * inv_db2;
-
-    float fx = 0.0f, fy = 0.0f, fz = 0.0f, u = 0.0f;
-
-    for (int ox = -1; ox <= 1; ++ox) {
-        const int x = cx + ox;
-        if (x < 0 || x >= nx) continue;
-        for (int oy = -1; oy <= 1; ++oy) {
-            const int y = cy + oy;
-            if (y < 0 || y >= ny) continue;
-            const int column = (x * ny + y) * nz;
-            const int j_begin = cell_start[column + z_lo];
-            const int j_end = cell_start[column + z_hi + 1];
-            for (int j = j_begin; j < j_end; ++j) {
-                if (j == i) continue;
-                const float4 pj = xyz[j];
-                const float2 fj = ab[j];
-                const float dx = pi.x - pj.x;
-                const float dy = pi.y - pj.y;
-                const float dz = pi.z - pj.z;
-                const float r2 = dx * dx + dy * dy + dz * dz;
-                const float a_mix = 0.5f * (fi.x + fj.x);
-                const float b_mix = 0.5f * (fi.y + fj.y);
-
-                const float core_a = fmaxf(1.0f - r2 * inv_da2, 0.0f);
-                const float s_b = r2 * inv_db2;
-                const float s_b2 = s_b * s_b;
-                const float core_b = fmaxf(1.0f - s_b2 * s_b2, 0.0f);
-
-                const float coeff = a_mix * ka * core_a * core_a +
-                                    b_mix * kb * s_b * s_b2 * core_b * core_b;
-                fx += coeff * dx;
-                fy += coeff * dy;
-                fz += coeff * dz;
-                if (kWithEnergy) {
-                    u += a_mix * e_a * core_a * core_a * core_a +
-                         b_mix * e_b * core_b * core_b * core_b;
-                }
-            }
-        }
-    }
-
-    forces[3 * i + 0] = fx;
-    forces[3 * i + 1] = fy;
-    forces[3 * i + 2] = fz;
-    if (kWithEnergy) energy[i] = 0.5f * u;
-}
-
 }  // namespace
 
 // Both launch on `stream`, do not synchronise and allocate nothing.  `energy`
@@ -475,31 +393,5 @@ extern "C" int ab_pair_forces_rows_launch(const void* xyz, const void* ab,
         static_cast<const long long*>(order), begin, end, nx, ny, nz,
         0.0f, 0.0f, 0.0f, 0.0f, static_cast<const float*>(step_rows),
         static_cast<const int*>(step_index), static_cast<float*>(forces), nullptr);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// The first version: forces (n, 3) and energy (n) in sorted order.
-extern "C" int ab_pair_forces_thread_per_bead_launch(
-        const void* xyz, const void* ab, const void* cell_id, const void* cell_start,
-        int n, int nx, int ny, int nz,
-        float e_a, float inv_da2, float e_b, float inv_db2,
-        void* forces, void* energy, void* stream) {
-    if (n <= 0) return 0;
-    const dim3 grid((n + kThreadsPerBeadBlock - 1) / kThreadsPerBeadBlock);
-    const dim3 block(kThreadsPerBeadBlock);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (energy != nullptr) {
-        ab_pair_forces_thread_per_bead_kernel<true><<<grid, block, 0, s>>>(
-            static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
-            static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
-            n, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
-            static_cast<float*>(forces), static_cast<float*>(energy));
-    } else {
-        ab_pair_forces_thread_per_bead_kernel<false><<<grid, block, 0, s>>>(
-            static_cast<const float4*>(xyz), static_cast<const float2*>(ab),
-            static_cast<const int*>(cell_id), static_cast<const int*>(cell_start),
-            n, nx, ny, nz, e_a, inv_da2, e_b, inv_db2,
-            static_cast<float*>(forces), nullptr);
-    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -31,10 +31,8 @@
 // candidates (tens of millions) dominate the events (hundreds of thousands),
 // so the floor is the operations, as for the pair kernel's distance test.
 //
-// contact_tick_kernel is the one the package runs.  The first version (one
-// thread a sorted row walking its candidates in global memory, kept below as
-// contact_tick_thread_per_row_kernel, the yardstick it is timed against)
-// reached 0.02 of that floor.  Two things held it: the rows of the dense
+// One thread a sorted row walking its candidates in global memory reaches
+// 0.02 of that floor.  Two things held it: the rows of the dense
 // cells, whose threads walk many times the mean while the rest of the card
 // idles, and the appends, one atomic on one global counter for every round
 // of the warp that hits, a round trip to L2 that stalls the warp at about a
@@ -55,10 +53,7 @@
 //      A hit past a full buffer (a very dense cell) takes its global slot at
 //      once.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -69,7 +64,6 @@ constexpr int kEvents = 2048;     // pairs a block stages before it writes them
 constexpr int kUnroll = 4;        // candidates a lane takes per turn of its loop
 constexpr int kRun = kBlock / kLanes;   // sorted rows a block owns
 constexpr int kRanges = 5;        // the half stencil's column ranges
-constexpr int kFirstBlock = 128;  // the first version's threads a block
 
 constexpr int log2_of(int v) { return v <= 1 ? 0 : 1 + log2_of(v / 2); }
 constexpr int kLanesShift = log2_of(kLanes);
@@ -278,67 +272,12 @@ contact_tick_kernel(const float4* __restrict__ xyz,       // (n) x, y, z, pad; s
     }
 }
 
-// The first version: one thread a sorted row, its candidates from global
-// memory, each hit appended through the counter at once (aggregated over the
-// threads of a warp that hit together: one atomicAdd a warp a round).
-__global__ void __launch_bounds__(kFirstBlock)
-contact_tick_thread_per_row_kernel(const float4* __restrict__ xyz,
-                                   const int* __restrict__ cell_id,
-                                   const int* __restrict__ cell_start,
-                                   const long long* __restrict__ order,
-                                   int begin, int end, int nx, int ny, int nz, float cutoff2,
-                                   unsigned capacity, int* __restrict__ events,
-                                   unsigned* __restrict__ count) {
-    const int home_end = min(end, cell_start[nx * ny * nz]);
-    const int i = begin + static_cast<int>(blockIdx.x) * kFirstBlock + static_cast<int>(threadIdx.x);
-    if (i >= home_end) return;
-
-    const float4 pi = xyz[i];
-    const long long id_i = order[i];
-    const int c = cell_id[i];
-    const int cz = c % nz;
-    const int cy = (c / nz) % ny;
-    const int cx = c / (nz * ny);
-    const int z_hi = min(cz + 1, nz - 1);
-
-    // The half stencil: (ox, oy) = (0, 0), (0, 1), (1, -1), (1, 0), (1, 1).
-#pragma unroll 1
-    for (int q = 0; q < 5; ++q) {
-        const int ox = q < 2 ? 0 : 1;
-        const int oy = q == 0 ? 0 : (q == 1 ? 1 : q - 3);
-        const int x = cx + ox;
-        const int y = cy + oy;
-        if (x >= nx || y < 0 || y >= ny) continue;
-        const int column = (x * ny + y) * nz;
-        const int z_lo = q == 0 ? cz : max(cz - 1, 0);
-        const int j_end = cell_start[column + z_hi + 1];
-        for (int j = max(cell_start[column + z_lo], i + 1); j < j_end; ++j) {
-            if (distance2(pi, xyz[j]) < cutoff2) {
-                // The threads of the warp that hit in this round take
-                // consecutive slots from one atomicAdd.
-                cg::coalesced_group hit = cg::coalesced_threads();
-                unsigned base = 0;
-                if (hit.thread_rank() == 0) base = atomicAdd(count, hit.size());
-                const unsigned slot = hit.shfl(base, 0) + hit.thread_rank();
-                if (slot < capacity) {
-                    const long long id_j = order[j];
-                    events[3 * slot + 0] = static_cast<int>(min(id_i, id_j));
-                    events[3 * slot + 1] = static_cast<int>(max(id_i, id_j));
-                    events[3 * slot + 2] = 1;
-                }
-            }
-        }
-    }
-}
-
 }  // namespace
 
-// Both launch on `stream`, do not synchronise and allocate nothing.  `count`
+// Launches on `stream`, does not synchronise and allocates nothing.  `count`
 // must hold 0 on entry; it ends holding the number of pairs found, which may
-// exceed `capacity` (then only `capacity` rows were written).  They return
+// exceed `capacity` (then only `capacity` rows were written).  Returns
 // cudaGetLastError().
-
-// The kernel the package runs.
 extern "C" int contact_tick_launch(const void* xyz, const void* cell_id,
                                    const void* cell_start, const void* order,
                                    int begin, int end, int nx, int ny, int nz,
@@ -347,22 +286,6 @@ extern "C" int contact_tick_launch(const void* xyz, const void* cell_id,
     if (end <= begin) return 0;
     const dim3 grid((end - begin + kRun - 1) / kRun);
     contact_tick_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(xyz), static_cast<const int*>(cell_id),
-        static_cast<const int*>(cell_start), static_cast<const long long*>(order),
-        begin, end, nx, ny, nz, cutoff2, capacity,
-        static_cast<int*>(events), static_cast<unsigned*>(count));
-    return static_cast<int>(cudaGetLastError());
-}
-
-// The first version.
-extern "C" int contact_tick_thread_per_row_launch(
-        const void* xyz, const void* cell_id, const void* cell_start, const void* order,
-        int begin, int end, int nx, int ny, int nz, float cutoff2, unsigned capacity,
-        void* events, void* count, void* stream) {
-    if (end <= begin) return 0;
-    const dim3 grid((end - begin + kFirstBlock - 1) / kFirstBlock);
-    contact_tick_thread_per_row_kernel<<<grid, kFirstBlock, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(xyz), static_cast<const int*>(cell_id),
         static_cast<const int*>(cell_start), static_cast<const long long*>(order),
         begin, end, nx, ny, nz, cutoff2, capacity,

@@ -19,6 +19,13 @@ the Brownian update with the wall ODE in one launch of
 ``csrc/contact_tick.cu`` (its event buffer's size kept on the model).  On
 the CPU every one of these runs its plain version.
 
+The stage around the steps is written once, for one store and for R stores
+in lock-step: :func:`run_relaxation`, :func:`start_g1` (a fresh start or a
+resume from the stores' checkpoints) and :func:`run_g1_frames`, which write
+through one frame writer, :func:`save_g1_frame`.  :func:`run_interphase`
+and ``parallel/ensemble.run_ensemble_interphase`` are thin wrappers around
+them.
+
 Known deliberate cadence deviation (documented, within stochastic tolerance):
 the reference samples the frame context *before* the per-step scale/wall
 update of the same callback; we record the post-update values, a half-step
@@ -48,6 +55,7 @@ from ..ops.contact import (
     events_to_host,
     merge_events_acc,
     merge_window,
+    split_window,
 )
 from ..ops import step_rest
 from ..ops.integrator import BDParams, bd_update, standard_normal
@@ -520,31 +528,256 @@ class WindowAccumulator:
         return coo
 
 
-def save_g1_frame(store, model: InterphaseModel, step: int, x, semiaxes, contacts_coo,
-                  mean_energy: float) -> InterphaseContext:
-    """Write G1 frame ``step`` of ``x`` (N, 3) into the store's current
-    stage: positions, the context (time, wall semiaxes, the schedule's scales
-    at that time, ``mean_energy``) and, when given and not empty, the
-    window's contacts.  Returns the context."""
+# -- the interphase stage, for one store or for R in lock-step ---------------
+#
+# The stage works on the carry the model's steps take: positions (N, 3) and
+# one generator for one store (``run_interphase``), (R, N, 3) and R
+# generators for R stores (``parallel/ensemble.py``).  Where the two runs
+# write or log differently, the positions' shape selects.
+
+
+def _clock(device) -> float:
+    """Host seconds, the device synchronised first."""
+    if device.type == "cuda":
+        with tracing.sync("clock"):
+            torch.cuda.synchronize(device)
+    return _time.perf_counter()
+
+
+def _to_host(tensor, site: str) -> np.ndarray:
+    with tracing.sync(site):
+        return tensor.detach().cpu().numpy()
+
+
+def _refresh_bound(model: InterphaseModel, x, log):
+    """Fit the grid to ``x``: for R stores one grid spans the widest."""
+    with tracing.sync("refresh_bound"):
+        extent = float(x.abs().max())
+    if model.update_bound(extent):
+        log(f"engine: grid bound -> {model.bound:g}")
+
+
+def _per_store(value, x) -> list:
+    """``value`` (positions, semiaxes, generators) as one entry a store:
+    itself for one store (``x`` (N, 3)), its rows for R (``x`` (R, N, 3))."""
+    return [value] if x.dim() == 2 else list(value)
+
+
+def _from_stores(arrays, like):
+    """One host array a store as a tensor of ``like``'s shape (one store's,
+    or R stacked), dtype and device."""
+    return torch.as_tensor(np.stack(arrays), dtype=like.dtype,
+                           device=like.device).reshape(like.shape)
+
+
+def _frame_energy(model: InterphaseModel, x, t: float, semiaxes) -> Optional[float]:
+    """The mean energy a bead that a frame of one store carries (an energy
+    pass and a sync); None for R stores, whose frames carry 0.0."""
+    if x.dim() == 3:
+        return None
+    core, bond = model.scales(t)
+    with torch.no_grad():
+        energy = model.total_energy(x, core, bond, semiaxes)
+    with tracing.sync("frame_energy"):
+        return float(energy) / model.n
+
+
+def _save_frames(stores, step: int, x, semiaxes, context: InterphaseContext, windows=None):
+    """Frame ``step`` of every store in its current stage.  Positions and
+    semiaxes go to the host once for all stores; then each store in order
+    gets its positions, ``context`` with its own wall, its window when
+    ``windows`` (one a store) is given (an empty one writes nothing), and
+    ``append_frame``.  Returns the host copies."""
+    axes = _to_host(semiaxes, "frame_context")
+    positions = _to_host(x, "frame_positions")
+    for k, (store, rows, wall) in enumerate(
+            zip(stores, _per_store(positions, x), _per_store(axes, x))):
+        store.save_positions(step, rows)
+        store.save_interphase_context(step, dataclasses.replace(
+            context, wall_semiaxes=tuple(float(v) for v in wall)))
+        if windows is not None:
+            store.save_contacts(step, windows[k])
+        store.append_frame(step)
+    return positions, axes
+
+
+def save_g1_frame(stores, model: InterphaseModel, step: int, x, semiaxes, windows,
+                  mean_energy: float):
+    """Write G1 frame ``step`` of the carry's positions ``x`` and wall
+    ``semiaxes`` into ``stores`` (one, or R in the carry's order): the
+    context holds the time, the store's wall, the schedule's scales at that
+    time and ``mean_energy``; ``windows``, when given, holds one contact
+    window a store.  Returns the host copies of positions and semiaxes, from
+    which :func:`save_g1_checkpoints` writes."""
     t = step * model.config.timestep
     core, bond = model.scales(t)
-    with tracing.sync("frame_context"):
-        wall = tuple(float(v) for v in semiaxes.detach().cpu().numpy())
-    ctx = InterphaseContext(
-        time=t,
-        wall_semiaxes=wall,
-        core_scale=float(core),
-        bond_scale=float(bond),
-        mean_energy=mean_energy,
-    )
-    with tracing.sync("frame_positions"):
-        positions = x.detach().cpu().numpy()
-    store.save_positions(step, positions)
-    store.save_interphase_context(step, ctx)
-    if contacts_coo is not None and len(contacts_coo):
-        store.save_contacts(step, contacts_coo)
-    store.append_frame(step)
-    return ctx
+    return _save_frames(stores, step, x, semiaxes, InterphaseContext(
+        time=t, core_scale=float(core), bond_scale=float(bond), mean_energy=mean_energy),
+        windows)
+
+
+def save_g1_checkpoints(stores, step: int, positions, axes, generator, x):
+    """Every store's snapshot of the step state at ``step``, one store after
+    another: a frame's host copies ``positions`` and ``axes`` and the state
+    of each store's generator."""
+    for store, rows, wall, g in zip(stores, _per_store(positions, x), _per_store(axes, x),
+                                    _per_store(generator, x)):
+        store.save_checkpoint(step, {"positions": rows, "semiaxes": wall,
+                                     "key": g.get_state().numpy()})
+
+
+def _window_written(log, timings, x, step: int, coo, events: int, capacity, seconds: float):
+    """Record a written window in ``timings["windows"]``: its step, rows,
+    the tick events folded into it (its counts sum to them), the
+    accumulator's rows, the host seconds since the previous window.  A run
+    of one store also logs it."""
+    if timings is not None:
+        timings.setdefault("windows", []).append(dict(
+            step=step, rows=len(coo), events=int(events), capacity=capacity, seconds=seconds))
+    if x.dim() == 2:
+        log(f"window at step {step}: {len(coo)} pairs from {int(events)} events"
+            + ("" if capacity is None else f", accumulator capacity {capacity}"))
+
+
+def run_relaxation(stores, model: InterphaseModel, generator, device, log, timings: Optional[dict]):
+    """The relaxation of every store from its structure at step 0, with
+    ``generator`` (one, or a list of R: the carry stacks the stores) — a
+    frame every ``relaxation_sampling_interval`` steps at the initial scales
+    and wall.  Returns the step state at its end."""
+    c = model.config
+    for store in stores:
+        store.set_stage("relaxation")
+        store.clear_frames()
+    rows = [torch.as_tensor(store.load_positions(0), dtype=model.dtype, device=device)
+            for store in stores]
+    x = rows[0] if isinstance(generator, torch.Generator) else torch.stack(rows)
+    if x.shape[-2] != model.n:
+        raise ValueError("initial structure size mismatch")
+    semiaxes = torch.as_tensor(c.wall_semiaxes_init, dtype=model.dtype,
+                               device=device).repeat(*x.shape[:-2], 1)
+
+    def frame(step, x):
+        _refresh_bound(model, x, log)
+        energy = _frame_energy(model, x, 0.0, semiaxes)
+        _save_frames(stores, step, x, semiaxes, InterphaseContext(
+            time=0.0, core_scale=c.core_scale_init, bond_scale=c.bond_scale_init,
+            mean_energy=0.0 if energy is None else energy))
+        if step or x.dim() == 2:
+            log(progress_line("relaxation", step, t=0.0, energy=energy))
+
+    frame(0, x)
+    t0 = _clock(device)
+    state = (x, generator, semiaxes)
+    n_chunks = c.relaxation_steps // c.relaxation_sampling_interval
+    for chunk in range(n_chunks):
+        for s in range(c.relaxation_sampling_interval):
+            state = model.relaxation_step(state, s)
+        frame((chunk + 1) * c.relaxation_sampling_interval, state[0])
+    if timings is not None:
+        timings["relaxation_seconds"] = _clock(device) - t0
+        timings["relaxation_steps"] = n_chunks * c.relaxation_sampling_interval
+    return state
+
+
+def start_g1(stores, model: InterphaseModel, state, log, timings: Optional[dict]):
+    """G1's start in every store, from the relaxed step ``state``.  Returns
+    the step state and the step G1 goes on from.
+
+    Intra-stage resume: a long G1 run snapshots its step state at contact
+    window boundaries, and a run of the stage again goes on from the
+    snapshot when every store holds one at the same step in (0, ``steps``)
+    (the reference can only restart whole stages, SURVEY.md §5.3-5.4).
+    Windows flush there, so no contact counts twice."""
+    c = model.config
+    x, generator, semiaxes = state
+    for store in stores:
+        store.set_stage("interphase")
+    checkpoints = [store.load_checkpoint() for store in stores]
+    steps_at = {None if cp is None else int(cp["step"]) for cp in checkpoints}
+    resume = steps_at.pop() if len(steps_at) == 1 else None
+    if resume is not None and 0 < resume < c.steps:
+        log(f"resuming interphase from checkpoint at step {resume}" if x.dim() == 2
+            else f"resuming ensemble interphase from step {resume}")
+        for store in stores:
+            # Frames written after the snapshot (before the crash) would be
+            # re-appended by the resumed chunks.
+            store.truncate_frames(resume)
+        x = _from_stores([cp["positions"] for cp in checkpoints], x)
+        semiaxes = _from_stores([cp["semiaxes"] for cp in checkpoints], semiaxes)
+        for g, cp in zip(_per_store(generator, x), checkpoints):
+            g.set_state(torch.from_numpy(np.ascontiguousarray(cp["key"], np.uint8)))
+        _refresh_bound(model, x, log)
+        return (x, generator, semiaxes), resume
+    for store in stores:
+        store.clear_frames()
+    # callback(0): sample, one contact update, dump-and-clear the window
+    # (step 0 satisfies both cadences), then the wall gets its first
+    # (reaction-free) update.
+    events = model.contact_events_tick(x, 0)
+    coo = merge_window([events_to_host(events)])
+    energy = _frame_energy(model, x, 0.0, semiaxes)
+    save_g1_frame(stores, model, 0, x, semiaxes, split_window(coo, model.n, len(stores)),
+                  0.0 if energy is None else energy)
+    if x.dim() == 2:
+        log(progress_line("interphase", 0, t=0.0, energy=energy))
+    _window_written(log, timings, x, 0, coo, events.shape[0], None, 0.0)
+    semiaxes = semiaxes + c.timestep * c.wall_mobility * (0.0 - model.wall_spring * semiaxes)
+    return (x, generator, semiaxes), 0
+
+
+def run_g1_frames(stores, model: InterphaseModel, state, resume: int,
+                  settings: EngineSettings, log, timings: Optional[dict]):
+    """G1 from step ``resume`` on, a chunk of ``sampling_interval`` steps at
+    a time; after each the grid refit, a window dumped every
+    ``contactmap_output_window`` frames, every store's frame, a progress
+    line every ``logging_interval`` steps and, at a window, every store's
+    checkpoint.  The checkpoints go at the end.  Returns the final positions
+    on the host."""
+    c = model.config
+    device = state[0].device
+    beads = state[0].shape[:-1].numel()
+    window = WindowAccumulator(beads, settings.acc_capacity, device, log)
+    sampling = c.sampling_interval
+    window_steps = sampling * c.contactmap_output_window
+    t_g1 = t_window = _clock(device)
+    wall_t0 = _time.perf_counter()
+    steps_done = 0
+    for chunk in range(resume // sampling, c.steps // sampling):
+        start = chunk * sampling
+        state = model.g1_chunk(state, start, sampling, window)
+        with tracing.span("g1.frame"):
+            x, generator, semiaxes = state
+            _refresh_bound(model, x, log)
+            step = start + sampling
+            coo = None
+            if step % window_steps == 0:
+                events, capacity = window.events, window.capacity
+                coo = window.take()
+                t_now = _clock(device)
+                _window_written(log, timings, x, step, coo, events, capacity, t_now - t_window)
+                t_window = t_now
+            energy = _frame_energy(model, x, step * c.timestep, semiaxes)
+            positions, axes = save_g1_frame(
+                stores, model, step, x, semiaxes,
+                None if coo is None else split_window(coo, model.n, len(stores)),
+                0.0 if energy is None else energy)
+            steps_done += sampling
+            if step % c.logging_interval == 0:
+                rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
+                one = x.dim() == 2
+                log(progress_line("interphase", step, t=step * c.timestep, energy=energy,
+                                  radius=float(np.cbrt(np.prod(axes))) if one else None)
+                    + ("" if one else f"\t{len(stores)} replicas")
+                    + f"\t{rate:.1f} steps/s ({rate * beads:.3g} bead-steps/s)")
+            if coo is not None:
+                save_g1_checkpoints(stores, step, positions, axes, generator, x)
+    if timings is not None:
+        timings["g1_seconds"] = _clock(device) - t_g1
+        timings["g1_steps"] = steps_done
+        timings["grid_bound"] = model.bound
+    for store in stores:
+        store.clear_checkpoint()
+    return _to_host(state[0], "final")
 
 
 def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
@@ -585,193 +818,14 @@ def run_interphase(store, settings: Optional[EngineSettings] = None, log=print,
     design = store.load_interphase_design()
     settings = settings or EngineSettings()
     model = InterphaseModel.from_design(design, config, settings, device)
-    c = config.interphase
-    n = design.particle_count
-    dtype = model.dtype
-
     generator = torch.Generator(device=device)
     generator.manual_seed(int(design.seed))
 
-    def clock():
-        if device.type == "cuda":
-            with tracing.sync("clock"):
-                torch.cuda.synchronize(device)
-        return _time.perf_counter()
-
-    def to_host(tensor, site):
-        with tracing.sync(site):
-            return tensor.detach().cpu().numpy()
-
-    def refresh_bound(x):
-        with tracing.sync("refresh_bound"):
-            extent = float(x.abs().max())
-        if model.update_bound(extent):
-            log(f"engine: grid bound -> {model.bound:g}")
-
-    semiaxes0 = torch.as_tensor(c.wall_semiaxes_init, dtype=dtype, device=device)
-
-    def mean_energy(x, t, semiaxes):
-        core, bond = model.scales(t)
-        with torch.no_grad():
-            energy = model.total_energy(x, core, bond, semiaxes)
-        with tracing.sync("frame_energy"):
-            return float(energy) / n
-
-    # ---- relaxation phase --------------------------------------------------
-    store.set_stage("relaxation")
-    store.clear_frames()
-    x = torch.as_tensor(store.load_positions(0), dtype=dtype, device=device)
-    if x.shape[0] != n:
-        raise ValueError("initial structure size mismatch")
-    refresh_bound(x)
-
-    def relax_context(x):
-        return InterphaseContext(
-            time=0.0,
-            wall_semiaxes=tuple(float(v) for v in to_host(semiaxes0, "frame_context")),
-            core_scale=c.core_scale_init,
-            bond_scale=c.bond_scale_init,
-            mean_energy=mean_energy(x, 0.0, semiaxes0),
-        )
-
-    ctx = relax_context(x)
-    store.save_positions(0, to_host(x, "frame_positions"))
-    store.save_interphase_context(0, ctx)
-    store.append_frame(0)
-    log(progress_line("relaxation", 0, t=0.0, energy=ctx.mean_energy))
-
-    t_relax = clock()
-    state = (x, generator, semiaxes0)
-    n_chunks = c.relaxation_steps // c.relaxation_sampling_interval
-    for chunk in range(n_chunks):
-        for s in range(c.relaxation_sampling_interval):
-            state = model.relaxation_step(state, s)
-        step = (chunk + 1) * c.relaxation_sampling_interval
-        x = state[0]
-        refresh_bound(x)
-        ctx = relax_context(x)
-        store.save_positions(step, to_host(x, "frame_positions"))
-        store.save_interphase_context(step, ctx)
-        store.append_frame(step)
-        log(progress_line("relaxation", step, t=0.0, energy=ctx.mean_energy))
-    if timings is not None:
-        timings["relaxation_seconds"] = clock() - t_relax
-        timings["relaxation_steps"] = n_chunks * c.relaxation_sampling_interval
-
-    # ---- interphase (G1) phase ---------------------------------------------
-    store.set_stage("interphase")
-
-    sampling = c.sampling_interval
-    window_steps = sampling * c.contactmap_output_window
-
-    # Intra-stage resume: a long G1 run snapshots its step state at contact
-    # window boundaries; re-running the stage continues from the snapshot
-    # (the reference can only restart whole stages, SURVEY.md §5.3-5.4).
-    checkpoint = store.load_checkpoint()
-    resume_step = 0
-    if checkpoint is not None and 0 < checkpoint["step"] < c.steps:
-        resume_step = int(checkpoint["step"])
-        log(f"resuming interphase from checkpoint at step {resume_step}")
-        # Frames written after the snapshot (before the crash) would be
-        # re-appended by the resumed chunks.
-        store.truncate_frames(resume_step)
-    else:
-        checkpoint = None
-        store.clear_frames()
-
-    def save_frame(step, x, semiaxes, contacts_coo=None):
-        return save_g1_frame(store, model, step, x, semiaxes, contacts_coo,
-                             mean_energy(x, step * c.timestep, semiaxes))
-
-    windows = timings.setdefault("windows", []) if timings is not None else []
-
-    def dumped(step, coo, events, capacity, seconds):
-        """Log and record a written window: its rows, the tick events folded
-        into it (its counts sum to them), the accumulator's rows, the
-        host-clock seconds since the previous window."""
-        windows.append(dict(step=step, rows=len(coo), events=int(events),
-                            capacity=capacity, seconds=seconds))
-        log(f"window at step {step}: {len(coo)} pairs from {int(events)} events"
-            + ("" if capacity is None else f", accumulator capacity {capacity}"))
-
-    if checkpoint is not None:
-        x = torch.as_tensor(checkpoint["positions"], dtype=dtype, device=device)
-        semiaxes = torch.as_tensor(checkpoint["semiaxes"], dtype=dtype, device=device)
-        generator.set_state(
-            torch.from_numpy(np.ascontiguousarray(checkpoint["key"], np.uint8))
-        )
-        refresh_bound(x)
-    else:
-        # callback(0): sample, one contact update, dump-and-clear the window
-        # (step 0 satisfies both cadences), then the wall gets its first
-        # (reaction-free) update.
-        semiaxes = semiaxes0
-        events0 = model.contact_events_tick(x, 0)
-        coo0 = merge_window([events_to_host(events0)])
-        ctx = save_frame(0, x, semiaxes, coo0)
-        log(progress_line("interphase", 0, t=0.0, energy=ctx.mean_energy))
-        dumped(0, coo0, events0.shape[0], None, 0.0)
-        semiaxes = semiaxes + c.timestep * c.wall_mobility * (
-            0.0 - model.wall_spring * semiaxes
-        )
-
+    state = run_relaxation([store], model, generator, device, log, timings)
+    state, resume = start_g1([store], model, state, log, timings)
     if mesh is not None:
         return run_halo_g1(store, mesh, dict(
-            model=model, config=config, design=design, x=x, generator=generator,
-            semiaxes=semiaxes, resume_step=resume_step,
+            model=model, config=config, design=design, x=state[0], generator=generator,
+            semiaxes=state[2], resume_step=resume,
         ), settings, log, timings)
-
-    window = WindowAccumulator(n, settings.acc_capacity, device, log)
-    state = (x, generator, semiaxes)
-    t_g1 = t_window = clock()
-    wall_t0 = _time.perf_counter()
-    steps_done = 0
-
-    n_chunks = c.steps // sampling
-    for chunk in range(resume_step // sampling, n_chunks):
-        start = chunk * sampling
-        state = model.g1_chunk(state, start, sampling, window)
-        with tracing.span("g1.frame"):
-            x, _, semiaxes = state
-            refresh_bound(x)
-            step = start + sampling
-
-            contacts_coo = None
-            if step % window_steps == 0:
-                events, capacity = window.events, window.capacity
-                contacts_coo = window.take()
-                t_now = clock()
-                dumped(step, contacts_coo, events, capacity, t_now - t_window)
-                t_window = t_now
-
-            ctx = save_frame(step, x, semiaxes, contacts_coo)
-            steps_done += sampling
-            if step % c.logging_interval == 0:
-                rate = steps_done / max(_time.perf_counter() - wall_t0, 1e-9)
-                log(
-                    progress_line(
-                        "interphase", step, t=step * c.timestep,
-                        energy=ctx.mean_energy,
-                        radius=float(np.cbrt(np.prod(to_host(semiaxes, "log_radius")))),
-                    )
-                    + f"\t{rate:.1f} steps/s ({rate * n:.3g} bead-steps/s)"
-                )
-
-            # Snapshot the step state at window boundaries (contact windows are
-            # flushed there, so a resume never double-counts contacts).
-            if contacts_coo is not None:
-                store.save_checkpoint(
-                    step,
-                    {
-                        "positions": to_host(x, "checkpoint"),
-                        "semiaxes": to_host(semiaxes, "checkpoint"),
-                        "key": generator.get_state().numpy(),
-                    },
-                )
-    if timings is not None:
-        timings["g1_seconds"] = clock() - t_g1
-        timings["g1_steps"] = steps_done
-        timings["grid_bound"] = model.bound
-
-    store.clear_checkpoint()
-    return to_host(state[0], "final")
+    return run_g1_frames([store], model, state, resume, settings, log, timings)

@@ -101,9 +101,8 @@ def events_with_capacity(search, capacity: EventCapacity):
         tracing.count("contact.tick_reruns")
 
 
-def _tick_entry_point(name: str):
-    lib = _build.load_library("contact_tick")
-    launch = getattr(lib, name)
+def _tick_entry_point():
+    launch = _build.load_library("contact_tick").contact_tick_launch
     if not launch.argtypes:
         launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_uint] + [ctypes.c_void_p] * 3)
@@ -111,35 +110,29 @@ def _tick_entry_point(name: str):
     return launch
 
 
-def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffer, count,
-                 first_version: bool = False):
+def _tick_launch(layout: CellLayout, cutoff2: float, begin: int, end: int, buffer, count):
     """One launch of the tick kernel into ``buffer`` (rows, 3) int32; adds
     the pairs found to ``count`` (1,) int32, which must hold 0.  Allocates
-    nothing and does not synchronise.  ``first_version`` launches the kernel
-    this one replaced (one thread a row), kept as a timing yardstick and not
-    counted."""
+    nothing and does not synchronise."""
     device = layout.xyz.device
-    entry = "contact_tick_thread_per_row_launch" if first_version else "contact_tick_launch"
     with torch.cuda.device(device):
-        status = _tick_entry_point(entry)(
+        status = _tick_entry_point()(
             layout.xyz.data_ptr(), layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
             layout.order.data_ptr(), begin, end, *layout.shape, cutoff2, buffer.shape[0],
             buffer.data_ptr(), count.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(f"contact tick kernel launch failed: CUDA error {status}")
-    if not first_version:
-        tracing.count("launch.contact_tick")
+    tracing.count("launch.contact_tick")
 
 
-def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int,
-                 first_version: bool = False):
+def _tick_search(layout: CellLayout, cutoff2: float, begin: int, end: int, rows: int):
     """:func:`_tick_launch` into a fresh buffer of ``rows`` rows; returns the
     buffer and the count of pairs found (a host synchronisation)."""
     device = layout.xyz.device
     count = torch.zeros(1, dtype=torch.int32, device=device)
     buffer = torch.empty((rows, 3), dtype=torch.int32, device=device)
-    _tick_launch(layout, cutoff2, begin, end, buffer, count, first_version)
+    _tick_launch(layout, cutoff2, begin, end, buffer, count)
     with tracing.sync("tick_count"):
         return buffer, int(count.item()) & 0xFFFFFFFF
 
@@ -162,14 +155,6 @@ def contact_events(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
     """
     if layout.xyz.device.type != "cuda":
         return contact_events_reference(layout, cutoff, begin, end)
-    return _contact_events_launched(layout, cutoff, begin, end, capacity)
-
-
-def _contact_events_launched(layout: CellLayout, cutoff: float, begin: int = 0, end=None,
-                             capacity: Optional[EventCapacity] = None,
-                             first_version: bool = False) -> torch.Tensor:
-    """:func:`contact_events` on a CUDA layout, by the kernel or, with
-    ``first_version``, by the kernel it replaced (the timing yardstick)."""
     _check_cutoff(layout, cutoff)
     _check_layout(layout)
     capacity = capacity if capacity is not None else EventCapacity()
@@ -179,8 +164,7 @@ def _contact_events_launched(layout: CellLayout, cutoff: float, begin: int = 0, 
     end = layout.n if end is None else min(int(end), layout.n)
     cutoff2 = float(cutoff) * float(cutoff)
     return events_with_capacity(
-        lambda rows: _tick_search(layout, cutoff2, begin, end, rows, first_version), capacity)
-
+        lambda rows: _tick_search(layout, cutoff2, begin, end, rows), capacity)
 
 
 def merge_contact_events(keys: np.ndarray, weights: np.ndarray):
@@ -243,9 +227,10 @@ def split_window(coo: np.ndarray, n: int, replicas: int) -> list:
     cuts = np.searchsorted(coo[:, 0], np.arange(replicas + 1) * n)
     windows = []
     for r in range(replicas):
-        rows = coo[cuts[r]:cuts[r + 1]].copy()
-        rows[:, :2] -= r * n
-        windows.append(rows)
+        rows = coo[cuts[r]:cuts[r + 1]]
+        # Replica 0's ids need no shift: its window is a view, not a copy
+        # (for one replica, the whole window).
+        windows.append(rows - np.int32([r * n, r * n, 0]) if r else rows)
     return windows
 
 

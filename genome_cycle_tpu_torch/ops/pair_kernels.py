@@ -22,9 +22,7 @@ Three parts:
   card's tests hold the kernel to, bit for bit.
 - :func:`ab_pair_forces` — the wrapper.  On a CUDA layout it launches the
   hand-written kernel ``csrc/ab_pair_forces.cu`` or raises; on a CPU layout it
-  takes the plain version.  Neither wrapper falls back on the card.  (The
-  source also holds the kernel's first version, reached only through
-  :func:`_ab_pair_forces_thread_per_bead`, as a yardstick for timing.)
+  takes the plain version.  Neither wrapper falls back on the card.
 - :func:`ab_pair_forces_reference` — the plain version, walking the same
   layout with ragged range expansion; the CPU tests and the on-card comparison
   use it.  ``ops.neighbor.pairwise_forces_dense`` is the layout-free oracle.
@@ -423,25 +421,18 @@ def ab_pair_forces_reference(layout: CellLayout, params, with_energy: bool = Fal
 
 
 def _entry_points():
-    """The C launch functions of ``csrc/ab_pair_forces.cu``: the kernel the
-    package runs, the first version kept as its yardstick, and the kernel
-    with its scalars read on the card."""
+    """The C launch functions of ``csrc/ab_pair_forces.cu``: the kernel with
+    its scalars by value and with them read on the card."""
     lib = _build.load_library("ab_pair_forces")
-    cells, thread_per_bead, rows = (
-        lib.ab_pair_forces_launch, lib.ab_pair_forces_thread_per_bead_launch,
-        lib.ab_pair_forces_rows_launch,
-    )
+    cells, rows = lib.ab_pair_forces_launch, lib.ab_pair_forces_rows_launch
     if not cells.argtypes:
         # Every pointer and the stream as c_void_p: without argtypes ctypes
         # passes a Python int as a 32-bit int and cuts the pointer.
-        floats = [ctypes.c_float] * 4
-        cells.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + floats
+        cells.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
                           + [ctypes.c_void_p] * 3)
-        thread_per_bead.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + floats
-                                    + [ctypes.c_void_p] * 3)
         rows.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-        cells.restype = thread_per_bead.restype = rows.restype = ctypes.c_int
-    return cells, thread_per_bead, rows
+        cells.restype = rows.restype = ctypes.c_int
+    return cells, rows
 
 
 def _check_tensor(name, tensor, dtype, shape, device, align):
@@ -472,40 +463,27 @@ def _check_layout(layout: CellLayout):
     _check_tensor("order", layout.order, torch.int64, (n,), device, 8)
 
 
-def _launch(layout: CellLayout, params, with_energy, thread_per_bead=False, begin=0, end=None):
-    """Check the inputs, allocate the outputs and launch one of the two
-    kernels on the current stream, without synchronising.  Returns (forces
-    (N, 3), per-bead energy (N,) or None): in bead order from the kernel the
-    package runs, in sorted order from the first version.  The kernel the
-    package runs takes the home range ``[begin, end)`` and clips ``end`` on
-    the device to the rows that take part; the first version takes every row
-    of a layout without padding."""
+def _launch(layout: CellLayout, params, with_energy, begin=0, end=None):
+    """Check the inputs, allocate the outputs and launch the kernel on the
+    current stream, without synchronising.  Returns (forces (N, 3), per-bead
+    energy (N,) or None) in bead order.  The kernel takes the home range
+    ``[begin, end)`` and clips ``end`` on the device to the rows that take
+    part."""
     e_a, inv_da2, e_b, inv_db2 = _check_params(layout, params)
     _check_layout(layout)
     device = layout.xyz.device
     n = layout.n
     begin = max(int(begin), 0)
     end = n if end is None else min(int(end), n)
-    launch = _entry_points()[1 if thread_per_bead else 0]
     # Rows the kernel does not write (outside the home range, padding) stay 0.
     partial = begin > 0 or end < n or layout.padded
     alloc = torch.zeros if partial else torch.empty
     forces = alloc((n, 3), dtype=torch.float32, device=device)
     per_bead = alloc((n,), dtype=torch.float32, device=device) if with_energy else None
-    pointers = [
-        layout.xyz.data_ptr(), layout.ab.data_ptr(),
-        layout.cell_id.data_ptr(), layout.cell_start.data_ptr(),
-    ]
-    if thread_per_bead:
-        if partial:
-            raise ValueError("the first version of the kernel takes no home range or padding")
-        rows = [n]
-    else:
-        pointers.append(layout.order.data_ptr())
-        rows = [begin, end]
     with torch.cuda.device(device):
-        status = launch(
-            *pointers, *rows, *layout.shape,
+        status = _entry_points()[0](
+            layout.xyz.data_ptr(), layout.ab.data_ptr(), layout.cell_id.data_ptr(),
+            layout.cell_start.data_ptr(), layout.order.data_ptr(), begin, end, *layout.shape,
             e_a, inv_da2, e_b, inv_db2,
             forces.data_ptr(), per_bead.data_ptr() if with_energy else None,
             torch.cuda.current_stream().cuda_stream,
@@ -561,7 +539,7 @@ def ab_pair_forces_rows(layout: CellLayout, scalars: StepScalars):
     _check_tensor("step index", scalars.index, torch.int32, (1,), device, 4)
     _check_tensor("step rows", scalars.rows, torch.float32,
                   (scalars.rows.shape[0], STEP_ROW), device, 16)
-    launch = _entry_points()[2]
+    launch = _entry_points()[1]
     n = layout.n
     forces = torch.empty((n, 3), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -574,19 +552,6 @@ def ab_pair_forces_rows(layout: CellLayout, scalars: StepScalars):
     if status != 0:
         raise RuntimeError(f"ab_pair_forces kernel launch failed: CUDA error {status}")
     return forces
-
-
-def _ab_pair_forces_thread_per_bead(layout: CellLayout, params, with_energy: bool = False):
-    """The first version of the kernel (one thread per sorted bead, result
-    un-sorted by an indexed copy), with the interface of
-    :func:`ab_pair_forces` on a layout without padding.  The package does not
-    run it: the card smoke test and the step profile time the kernel above
-    against it within one run."""
-    forces_sorted, per_bead = _launch(layout, params, with_energy, thread_per_bead=True)
-    forces = torch.empty_like(forces_sorted)
-    forces[layout.order] = forces_sorted
-    energy = per_bead.sum() if with_energy else forces.new_zeros(())
-    return forces, energy
 
 
 def candidate_pairs(layout: CellLayout) -> int:

@@ -408,7 +408,7 @@ def run_halo_g1(store, mesh, start: Optional[dict], settings=None, log=print,
     (``halo``).  Returns the final positions (N, 3) on every rank.
     """
     from ..models.interphase import (
-        EngineSettings, InterphaseModel, WindowAccumulator, save_g1_frame,
+        EngineSettings, InterphaseModel, WindowAccumulator, save_g1_checkpoints, save_g1_frame,
     )
 
     settings = settings or EngineSettings()
@@ -470,20 +470,15 @@ def run_halo_g1(store, mesh, start: Optional[dict], settings=None, log=print,
             _, bonded_energy = model.bonded_forces(x, bond, with_energy=True)
             _, _, wall_energy = model.wall_forces_rows(x, semiaxes, core)
             energy = float(pair_energy + bonded_energy + wall_energy) / n
-            coo = None
-            if dump:
-                coo = merge_window(parts)
-            save_g1_frame(store, model, step, x, semiaxes, coo, energy)
+            positions, axes = save_g1_frame([store], model, step, x, semiaxes,
+                                            [merge_window(parts)] if dump else None, energy)
             if step % c.logging_interval == 0:
                 rate = steps_done / max(clock() - t_g1, 1e-9)
                 log(progress_line("interphase", step, t=t, energy=energy,
-                                  radius=float(np.cbrt(np.prod(semiaxes.cpu().numpy()))))
+                                  radius=float(np.cbrt(np.prod(axes))))
                     + f"\t{rate:.1f} steps/s ({rate * n:.3g} bead-steps/s, {shards} shards)")
             if dump:
-                store.save_checkpoint(step, {
-                    "positions": x.cpu().numpy(), "semiaxes": semiaxes.cpu().numpy(),
-                    "key": generator.get_state().numpy(),
-                })
+                save_g1_checkpoints([store], step, positions, axes, generator, x)
         if model.update_bound(float(x.abs().max())):
             if first:
                 log(f"engine: grid bound -> {model.bound:g}")

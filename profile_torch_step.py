@@ -13,8 +13,8 @@ the kernel's search alone) and a window merge the same way.  The layers of a
 G1 step are the layout (the kernels of ``csrc/cell_layout.cu``, also alone by
 CUDA events), the pair kernel, the nucleolar terms, the noise and the one
 launch of the rest kernel (bonds, wall, update, wall ODE); the layout's plain
-version, the rest kernel's bonds alone and wall alone, the update kernel and
-the pair kernel's first version are timed apart.  ``torch.profiler`` windows over whole G1
+version, the rest kernel's bonds alone and wall alone and the update kernel
+are timed apart.  ``torch.profiler`` windows over whole G1
 steps, relaxation steps and ticks give the device's busy share, the device
 kernels started a step and the device time by kernel name.  The eager steps of the three mitotic phases
 (576 coarse beads, 1,152 with sisters) are timed and profiled the same way,
@@ -331,8 +331,7 @@ def main():
     # + wall + update + wall ODE.  Beside them, not part of a G1 step: the
     # rest kernel's bonds alone and wall alone (as bonded_forces and
     # wall_forces launch it for the sharded drivers and the energy pass),
-    # the update kernel (the relaxation's, with its displacement limit) and
-    # the pair kernel's first version.
+    # and the update kernel (the relaxation's, with its displacement limit).
     bonds, wall = model.bond_rows(bond), model.wall_rows(semiaxes, core)
     layers = {
         "layout": host_ms(lambda: model.cell_layout(x), n),
@@ -350,8 +349,6 @@ def main():
     apart = {
         "layout_plain_version": host_ms(lambda: pk.build_cell_layout_reference(
             x, model.af, model.bf, model.bound, model.cell), n),
-        "pair_kernel_first_version": host_ms(
-            lambda: pk._ab_pair_forces_thread_per_bead(layout, kparams), n),
         "bonded": host_ms(lambda: model.bonded_forces(x, bond), n),
         "wall": host_ms(lambda: model.wall_forces_rows(x, semiaxes, core), n),
         "update_with_limit": host_ms(lambda: bd_update(

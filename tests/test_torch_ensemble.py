@@ -20,6 +20,7 @@ Tolerances:
   are equal to the bit: nothing couples them.
 """
 
+import dataclasses
 import json
 import shutil
 
@@ -276,6 +277,43 @@ def test_checkpoint_holds_each_replicas_state(warm):
             store.set_stage("interphase")
             np.testing.assert_allclose(arrays["positions"], store.load_positions(40), atol=1e-4)
     assert not np.array_equal(saved[0][0][1]["key"], saved[1][0][1]["key"])
+
+
+def test_an_ensemble_of_one_writes_what_its_single_run_writes(warm, tmp_path):
+    """One stage runs one store and R: an ensemble of one store writes the
+    frames, windows and checkpoints that ``run_interphase`` writes for it,
+    its contexts equal but for the mean energy (an ensemble's frames carry
+    0.0: no energy pass)."""
+    source = warm[0][:1]
+    paths = {"ensemble": copies(source, tmp_path, "one")[0],
+             "single": copies(source, tmp_path, "single")[0]}
+    runs = {
+        "ensemble": lambda store: run_ensemble_interphase(
+            [store], settings=KERNEL_PATH, log=lambda m: None, device="cpu"),
+        "single": lambda store: tinter.run_interphase(
+            store, settings=KERNEL_PATH, log=lambda m: None, device="cpu"),
+    }
+    checkpoints = {}
+    for label, path in paths.items():
+        with SimulationStore(path) as store:
+            real = store.save_checkpoint
+            store.save_checkpoint = lambda step, arrays, real=real, label=label: (
+                checkpoints.setdefault(label, []).append(step), real(step, arrays))
+            runs[label](store)
+    assert checkpoints["ensemble"] == checkpoints["single"] == [40, 80]
+    got, want = frames_of(paths["ensemble"]), frames_of(paths["single"])
+    for stage, steps in FRAMES.items():
+        assert sorted(got[stage]) == sorted(want[stage]) == steps
+        for step in steps:
+            (x, ctx, coo), (x_1, ctx_1, coo_1) = got[stage][step], want[stage][step]
+            np.testing.assert_allclose(x, x_1, atol=1e-4)
+            assert ctx.mean_energy == 0.0 and ctx_1.mean_energy != 0.0
+            assert vars(ctx) == vars(dataclasses.replace(ctx_1, mean_energy=0.0))
+            if coo_1 is None:
+                assert coo is None
+            else:
+                assert_windows_close(coo, coo_1)
+    assert all(want["interphase"][step][2] is not None for step in (0, 40, 80))
 
 
 @pytest.mark.parametrize("both", [True, False], ids=["every-store", "one-store"])

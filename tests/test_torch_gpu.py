@@ -1,8 +1,7 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
 on a layout of several replicas; the cell layout's kernels against theirs,
-bit for bit; the step kernels (the contact tick and its
-first version, the rest kernel with its wall reaction and nucleolar rows, the
-update) against theirs; an ensemble run on
+bit for bit; the step kernels (the contact tick, the rest kernel with its
+wall reaction and nucleolar rows, the update) against theirs; an ensemble run on
 the card; the
 interphase step through the kernel against the C++ surrogate; and the
 analysis chain's device numerics on the card against the host.
@@ -105,17 +104,6 @@ def test_two_launches_are_bitwise_equal(cuda_device, with_energy):
     torch.cuda.synchronize()
     assert first[0].abs().max() > 1.0
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
-
-
-@pytest.mark.gpu
-def test_first_version_of_the_kernel_matches_plain_version(cuda_device):
-    layout = _layout(_beads(3000, seed=11), cuda_device)
-    kparams = _kparams(1.0)
-    before = _launches()
-    f, e = pk._ab_pair_forces_thread_per_bead(layout, kparams, with_energy=True)
-    torch.cuda.synchronize()
-    assert _launches() == before     # the yardstick counts apart
-    _assert_matches_plain(layout, kparams, f, e)
 
 
 @pytest.mark.gpu
@@ -609,22 +597,6 @@ def test_contact_tick_kernel_matches_plain_version(cuda_device):
             assert got.shape == (0, 3)
         else:
             assert len(want) > 0, name
-
-
-@pytest.mark.gpu
-def test_contact_tick_kernel_matches_its_first_version(cuda_device):
-    """The tick kernel and the one it replaced (one thread a row, kept as a
-    timing yardstick) list the same pairs on every control input; the first
-    version's launches are not counted."""
-    from genome_cycle_tpu_torch.ops import contact
-
-    for name, layout, begin, end in _tick_layouts(cuda_device):
-        got = contact.contact_events(layout, 0.24, begin, end)
-        before = _launches("contact_tick")
-        first = contact._contact_events_launched(layout, 0.24, begin, end, first_version=True)
-        torch.cuda.synchronize()
-        assert _launches("contact_tick") == before, name
-        assert _pair_set(got) == _pair_set(first), name
 
 
 @pytest.mark.gpu

@@ -16,8 +16,7 @@ production nucleus (59,610 particles, from the port's own anaphase and
 telophase as ``chip_smoke.py`` runs them) at four inputs: before the relaxation,
 after ``--relax-steps`` relaxation steps, after ``--steps`` G1 steps more, and
 that last structure at core scale 1, where the most pairs are in reach.  The
-kernel's first version (one thread per bead) is timed beside them, bare and
-with the indexed copy that un-sorts its result.  ``--sass`` also writes
+wrapper, which the package calls, is timed beside them.  ``--sass`` also writes
 ``cuobjdump``'s listing of the library the package loads.  Prints one JSON
 object and writes it to ``DIR/tune_pair_kernel.json`` (default
 ``build/profile``).  Needs a CUDA card.
@@ -176,10 +175,6 @@ def main():
             "pairs_in_reach": pk.pairs_in_reach(layout, params),
             "cells": layout.num_cells,
             "ms": times,
-            "first_version_bare_ms": chip_smoke.time_ms(
-                lambda: pk._launch(layout, params, False, thread_per_bead=True), 20),
-            "first_version_ms": chip_smoke.time_ms(
-                lambda: pk._ab_pair_forces_thread_per_bead(layout, params), 20),
             "wrapper_ms": chip_smoke.time_ms(lambda: pk.ab_pair_forces(layout, params), 20),
         }
     text = json.dumps(result, indent=1)
