@@ -39,7 +39,8 @@ prints no result.  It
    ``transition_prometaphase``, ``run_prometaphase``, all on the card — with
    the depth cut (``CONFIG`` below), and checks what every stage wrote and
    that the mitotic stages launched the chunk kernel once a
-   ``sampling_interval`` and the update kernel only in the relaxation, and
+   ``sampling_interval`` and wrote each frame but a stage's last while the
+   next chunk ran, and the update kernel only in the relaxation, and
    that at least 99 % of the G1 steps ran as CUDA graph replays; then
    phase "mitotic kernel": the chunk kernel against its plain version at the
    three mitotic phases' start structures of that cycle (576, 576 and 1,152
@@ -2160,6 +2161,17 @@ def check_chunk_launches(name, counts, m):
         fail(name, f"{counts['mitotic_chunk']} mitotic chunk-kernel launches, expected {chunks}")
 
 
+def check_frames_overlapped(name, counts, m):
+    """Every mitotic frame but a stage's last written while the next chunk
+    ran: ``mitotic.frames_overlapped`` one a chunk."""
+    chunks = sum(getattr(m, f"{p}_steps") // m.sampling_interval for p in MITOTIC_PHASES)
+    overlapped = counts.get("mitotic.frames_overlapped", 0)
+    phase(name, f"mitotic frames written while the next chunk ran: {overlapped} of "
+                f"{chunks + len(MITOTIC_PHASES)}")
+    if overlapped != chunks:
+        fail(name, f"{overlapped} mitotic frames overlapped, expected {chunks}")
+
+
 def mitotic_starts(store, config, device):
     """Each mitotic phase's model and start structure (its frame 0) in
     ``store``, with what the checks need: the phase's terms, chunk, eager
@@ -2455,6 +2467,7 @@ def main():
     try:
         torch.cuda.reset_peak_memory_stats()
         counted = kernel_launches()
+        overlap_before = tracing.counters()
         timings = {}
         phase("depth", f"cut to {json.dumps(CONFIG)}; second cell {json.dumps(CONFIG_NEXT)}")
         store, config = prepare_nucleus(workdir, device, timings)
@@ -2506,6 +2519,7 @@ def main():
                           f"{steps + relax_steps + ticks} layouts (a step each, a tick each) "
                           f"expected")
         check_chunk_launches("check", main_step_launches, m)
+        check_frames_overlapped("check", tracing.counters_since(overlap_before), m)
         x_metaphase = check_prometaphase(store, m)
         if not np.allclose(metaphase, x_metaphase, rtol=1e-4, atol=1e-4):
             fail("check", "returned metaphase positions differ from the last stored frame")

@@ -222,16 +222,42 @@ def design_arrays(design: StageDesign, m: MitoticPhaseConfig) -> dict:
     )
 
 
+def _to_host(value: torch.Tensor):
+    """Enqueue a copy of ``value`` to the host, into pinned memory when it is
+    on the card, and record an event after it.  Returns (host tensor, event);
+    on the CPU the copy is done on return and the event is None."""
+    host = torch.empty(value.shape, dtype=value.dtype, pin_memory=value.is_cuda)
+    host.copy_(value.detach(), non_blocking=True)
+    if not value.is_cuda:
+        return host, None
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(value.device))
+    return host, copied
+
+
+def _wait(copied):
+    if copied is not None:
+        copied.synchronize()
+
+
 def run_stage_phase(store, stage, steps, m, chunk_fn, energy_fn, state, log,
                     timings=None):
     """The sampling loop the mitotic phases share: clear the stage's frames,
     store step 0, then a frame every ``sampling_interval`` steps and a
     progress line (mean energy per bead) every ``logging_interval``.
     ``chunk_fn(state, steps)`` advances the state ``(x, generator)`` by
-    ``sampling_interval`` steps, one chunk a frame.  Returns
-    the final state; ``timings`` receives the phase's host-clock seconds
-    (device synchronised) and step count under ``<stage>_seconds/_steps``."""
+    ``sampling_interval`` steps, one chunk a frame; ``energy_fn(x)`` is the
+    total energy of ``x`` as a 0-d tensor on its device.
+
+    One frame deep: after chunk k the loop enqueues the copies of frame k to
+    the host (positions and, on a logging frame, energy), then chunk k + 1,
+    and only then waits on those copies and writes frame k and its line, so
+    that the store's writes run while the device runs chunk k + 1.  A stage
+    of n chunks writes n of its n + 1 frames so (``mitotic.frames_overlapped``).
+    Returns the final state; ``timings`` receives the phase's host-clock
+    seconds (device synchronised) and step count under ``<stage>_seconds/_steps``."""
     device = state[0].device
+    interval = m.sampling_interval
 
     def clock():
         if device.type == "cuda":
@@ -239,32 +265,37 @@ def run_stage_phase(store, stage, steps, m, chunk_fn, energy_fn, state, log,
                 torch.cuda.synchronize(device)
         return _time.perf_counter()
 
-    def sample(step, x):
+    def read(step, x):
+        logged = step == 0 or step % m.logging_interval == 0
+        return step, _to_host(x), _to_host(energy_fn(x)) if logged else None
+
+    def write(frame):
+        step, (positions, copied), energy = frame
         with tracing.span("mitotic.frame"):
             with tracing.sync("mitotic_frame"):
-                positions = x.detach().cpu().numpy()
-            store.save_positions(step, positions)
+                _wait(copied)
+            store.save_positions(step, positions.numpy())
             store.append_frame(step)
-
-    def energy(x):
-        with tracing.sync("mitotic_energy"):
-            return energy_fn(x)
+        if energy is not None:
+            value, copied = energy
+            with tracing.sync("mitotic_energy"):
+                _wait(copied)
+            log(progress_line(stage, step, energy=float(value) / positions.shape[0]))
 
     store.set_stage(stage)
     store.clear_frames()
-    sample(0, state[0])
-    log(progress_line(stage, 0, energy=energy(state[0])))
     t0 = clock()
-    n_chunks = steps // m.sampling_interval
-    for chunk in range(n_chunks):
-        state = chunk_fn(state, m.sampling_interval)
-        step = (chunk + 1) * m.sampling_interval
-        sample(step, state[0])
-        if step % m.logging_interval == 0:
-            log(progress_line(stage, step, energy=energy(state[0])))
+    frame = read(0, state[0])
+    n_chunks = steps // interval
+    for chunk in range(1, n_chunks + 1):
+        state = chunk_fn(state, interval)
+        write(frame)
+        tracing.count("mitotic.frames_overlapped")
+        frame = read(chunk * interval, state[0])
+    write(frame)
     if timings is not None:
         timings[f"{stage}_seconds"] = clock() - t0
-        timings[f"{stage}_steps"] = n_chunks * m.sampling_interval
+        timings[f"{stage}_steps"] = n_chunks * interval
     return state
 
 
@@ -298,14 +329,14 @@ def run_anatelophase(store, log=print, device=None, timings: Optional[dict] = No
     x = torch.as_tensor(np.asarray(x0), dtype=torch.float32, device=device)
 
     def run_phase(stage: str, telophase: bool, steps: int, x, seed: int):
-        def mean_energy(x):
+        def energy(x):
             with torch.no_grad():
-                return float(model.forces(x, telophase, with_energy=True)[1]) / model.n
+                return model.forces(x, telophase, with_energy=True)[1]
 
         return run_stage_phase(
             store, stage, steps, m,
             lambda state, steps: model.run_chunk(state, steps, telophase),
-            mean_energy, (x, seeded_generator(seed, device)), log, timings,
+            energy, (x, seeded_generator(seed, device)), log, timings,
         )
 
     (x, _) = run_phase("anaphase", False, m.anaphase_steps, x, design.seed)

@@ -234,12 +234,12 @@ def run_prometaphase(store, log=print, device=None, timings: Optional[dict] = No
         raise ValueError("initial structure size mismatch")
     x = torch.as_tensor(np.asarray(x0), dtype=torch.float32, device=device)
 
-    def mean_energy(x):
+    def energy(x):
         with torch.no_grad():
-            return float(model.forces(x, with_energy=True)[1]) / model.n
+            return model.forces(x, with_energy=True)[1]
 
     (x, _) = run_stage_phase(
-        store, "prometaphase", m.prometaphase_steps, m, model.run_chunk, mean_energy,
+        store, "prometaphase", m.prometaphase_steps, m, model.run_chunk, energy,
         (x, seeded_generator(design.seed, device)), log, timings,
     )
     return x.cpu().numpy()

@@ -41,7 +41,7 @@ def pairwise_forces_dense(positions, coeff_fn, energy_fn=None, targets=None):
     energy = positions.new_zeros(())
     f = torch.zeros_like(pos)
     rows = max(1, min(m, _BLOCK_ELEMENTS // max(m * batch, 1)))
-    far = torch.as_tensor(1e30, dtype=positions.dtype, device=device)
+    far = torch.full((), 1e30, dtype=positions.dtype, device=device)   # no host copy
     for r0 in range(0, m, rows):
         r1 = min(r0 + rows, m)
         dx = pos[..., r0:r1, None, :] - pos[..., None, :, :]     # (..., rows, m, 3)

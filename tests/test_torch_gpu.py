@@ -1,8 +1,9 @@
 """The CUDA pair-force kernels against their plain version, on the card, also
 on a layout of several replicas; the cell layout's kernels against theirs,
 bit for bit; the step kernels (the contact tick, the rest kernel with its
-wall reaction and nucleolar rows, the update) against theirs; an ensemble run on
-the card; the
+wall reaction and nucleolar rows, the update) against theirs; the mitotic
+stage driver's frames, written while the next chunk runs, against a serial
+loop's, bit for bit; an ensemble run on the card; the
 interphase step through the kernel against the C++ surrogate; and the
 analysis chain's device numerics on the card against the host.
 
@@ -872,17 +873,13 @@ def test_step_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 # -- the mitotic chunk kernel ---------------------------------------------------
 
-def _mitotic_phase(tmp_path, device, phase, **fields):
-    """(model, terms, start positions) of ``phase`` on ``device`` for a small
-    design, a 300- and a 200-bead chain with a centromere each,
-    coarse-grained by 10 (that of tests/test_torch_mitotic.py): rods for the
-    anaphase, rods next to the pole for the telophase; for the prometaphase
-    each target chromatid a walk of 0.3 steps, its sister 0.3 beside it."""
+def _mitotic_store(tmp_path, **fields):
+    """A store prepared for a small design, a 300- and a 200-bead chain with
+    a centromere each, coarse-grained by 10 (that of
+    tests/test_torch_mitotic.py), ``fields`` added to its mitotic phase."""
     import json
 
-    from genome_cycle_tpu_torch.models.anatelophase import AnatelophaseModel
     from genome_cycle_tpu_torch.models.prepare import run_prepare
-    from genome_cycle_tpu_torch.models.prometaphase import PrometaphaseModel
     from genome_cycle_tpu_torch.store import MemoryStore
 
     config = {"mitotic_phase": {"coarse_graining": 10, "kfiber_length_anaphase": 0.2,
@@ -900,6 +897,18 @@ def _mitotic_phase(tmp_path, device, phase, **fields):
     store = MemoryStore()
     run_prepare(store, str(tmp_path / "config.json"), str(tmp_path / "chains.tsv"), seed=42,
                 log=lambda m: None)
+    return store
+
+
+def _mitotic_phase(tmp_path, device, phase, **fields):
+    """(model, terms, start positions) of ``phase`` on ``device`` for the
+    design of :func:`_mitotic_store`: rods for the anaphase, rods next to the
+    pole for the telophase; for the prometaphase each target chromatid a walk
+    of 0.3 steps, its sister 0.3 beside it."""
+    from genome_cycle_tpu_torch.models.anatelophase import AnatelophaseModel
+    from genome_cycle_tpu_torch.models.prometaphase import PrometaphaseModel
+
+    store = _mitotic_store(tmp_path, **fields)
     rng = np.random.default_rng(7)
     if phase != "prometaphase":
         design = store.load_anatelophase_design()
@@ -999,6 +1008,60 @@ def test_mitotic_chunk_kernel_refuses_a_system_past_its_capacity(cuda_device, tm
         mitotic.run_chunk(x.double(), terms, model.mobility, noise, 1.0, 1e-4)
     with pytest.raises(ValueError):
         mitotic.run_chunk(x, terms, model.mobility, noise.cpu(), 1.0, 1e-4)
+
+
+@pytest.mark.gpu
+def test_mitotic_frames_written_while_the_next_chunk_runs_equal_a_serial_loop(
+        cuda_device, tmp_path):
+    """A short anaphase + telophase through ``run_anatelophase``, which writes
+    each frame while the next chunk runs, stores the frames of a serial loop
+    (chunk, ``.cpu()``, write) bit for bit and ends in its state; a stage of
+    n chunks counts n frames under ``mitotic.frames_overlapped``."""
+    from genome_cycle_tpu_torch.models.anatelophase import (
+        AnatelophaseModel, run_anatelophase, seeded_generator,
+    )
+    from genome_cycle_tpu_torch.store import MemoryStore
+
+    store = _mitotic_store(tmp_path, anaphase_steps=600, telophase_steps=300,
+                           sampling_interval=50, logging_interval=100)
+    design = store.load_anatelophase_design()
+    model = AnatelophaseModel.from_design(design, store.load_config(), cuda_device)
+    m = model.config
+    stages = (("anaphase", False, m.anaphase_steps, design.seed),
+              ("telophase", True, m.telophase_steps, design.seed + 1))
+
+    want = MemoryStore()
+    x = torch.as_tensor(model.initial_rods(np.random.default_rng(design.seed), design.chains),
+                        dtype=torch.float32, device=cuda_device)
+    for stage, telophase, steps, seed in stages:
+        want.set_stage(stage)
+        state = (x, seeded_generator(seed, cuda_device))
+        for k in range(steps // m.sampling_interval + 1):
+            if k:
+                state = model.run_chunk(state, m.sampling_interval, telophase)
+            want.save_positions(k * m.sampling_interval, state[0].cpu().numpy())
+            want.append_frame(k * m.sampling_interval)
+        x = state[0]
+
+    marks, clear = [], store.clear_frames
+
+    def clear_frames():
+        marks.append(tracing.counters().get("mitotic.frames_overlapped", 0))
+        clear()
+
+    store.clear_frames = clear_frames
+    final = run_anatelophase(store, log=lambda line: None, device=cuda_device)
+    marks.append(tracing.counters().get("mitotic.frames_overlapped", 0))
+
+    assert np.array_equal(final, x.cpu().numpy())
+    for stage, _, steps, _ in stages:
+        store.set_stage(stage)
+        want.set_stage(stage)
+        assert store.load_steps() == want.load_steps() == list(
+            range(0, steps + 1, m.sampling_interval))
+        for step in want.load_steps():
+            assert np.array_equal(store.load_positions(step), want.load_positions(step))
+    assert np.diff(marks).tolist() == [s[2] // m.sampling_interval for s in stages]
 
 
 # ---- the G1 step as one CUDA graph replay (models/g1_graph.py) ---------------

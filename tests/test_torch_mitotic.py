@@ -350,3 +350,77 @@ def test_generator_state_makes_a_run_repeat(designs):
             carry = tmodel.step(carry, s, False)
         runs.append(carry[0])
     assert torch.equal(runs[0], runs[1])
+
+
+# -- the stage driver's order of calls -----------------------------------------------
+
+class _RecordingStore:
+    """The store calls ``run_stage_phase`` makes, recorded in ``events``."""
+
+    def __init__(self, events):
+        self.events, self.frames = events, {}
+
+    def set_stage(self, stage):
+        self.events.append(("stage", stage))
+
+    def clear_frames(self):
+        self.events.append(("clear",))
+
+    def save_positions(self, step, positions):
+        self.frames[step] = np.array(positions)
+
+    def append_frame(self, step):
+        self.events.append(("frame", step))
+
+
+def test_stage_driver_enqueues_the_next_chunk_before_it_writes_a_frame():
+    """Chunk k + 1 is called before frame k is written, and no chunk past
+    the stage's last; frames, steps, progress lines and the returned state
+    are those of a plain serial loop; the overlap and sync counters count."""
+    from genome_cycle_tpu_torch.config import MitoticPhaseConfig
+    from genome_cycle_tpu_torch.utils import tracing
+    from genome_cycle_tpu_torch.utils.logging import progress_line
+
+    m = dataclasses.replace(MitoticPhaseConfig(), sampling_interval=100, logging_interval=200)
+    steps, start = 350, torch.arange(12, dtype=torch.float32).reshape(4, 3)
+
+    def chunk_fn(state, k_steps, events):
+        x, generator = state
+        events.append(("chunk", len([e for e in events if e[0] == "chunk"]) + 1))
+        x.mul_(1.5).add_(float(k_steps))           # in place: a frame must be copied first
+        return (x, generator)
+
+    def energy_fn(x):
+        return (x * x).sum()
+
+    events, lines = [], []
+    store = _RecordingStore(events)
+    before = tracing.counters()
+    got = tana.run_stage_phase(store, "anaphase", steps, m,
+                               lambda s, k: chunk_fn(s, k, events), energy_fn,
+                               (start.clone(), None), lines.append)
+    counted = tracing.counters_since(before)
+
+    want_frames, want_lines, x = {}, [], start.clone()
+    for chunk in range(steps // m.sampling_interval + 1):
+        if chunk:
+            x = chunk_fn((x, None), m.sampling_interval, [])[0]
+        step = chunk * m.sampling_interval
+        want_frames[step] = x.numpy().copy()
+        if step % m.logging_interval == 0:
+            want_lines.append(progress_line("anaphase", step,
+                                            energy=float(energy_fn(x)) / x.shape[0]))
+
+    assert events == [("stage", "anaphase"), ("clear",), ("chunk", 1), ("frame", 0),
+                      ("chunk", 2), ("frame", 100), ("chunk", 3), ("frame", 200),
+                      ("frame", 300)]
+    assert list(store.frames) == list(want_frames)
+    for step, frame in want_frames.items():
+        assert np.array_equal(store.frames[step], frame)
+    # The stamp aside, the same lines: "[stage] <stamp>", step, energy.
+    assert [line.split(" ")[0] for line in lines] == ["[anaphase]"] * 2
+    assert [line.split("\t")[1:] for line in lines] == \
+        [line.split("\t")[1:] for line in want_lines]
+    assert torch.equal(got[0], x) and got[1] is None
+    assert counted.get("mitotic.frames_overlapped") == 3
+    assert counted.get("sync.mitotic_frame") == 4 and counted.get("sync.mitotic_energy") == 2

@@ -206,11 +206,11 @@ def test_stage_driver_through_chunks_matches_jax_scan(designs, phase, fields):
     telophase = phase == "telophase"
     if phase == "prometaphase":
         jstep, chunk = jmodel.step, tmodel.run_chunk
-        energy = lambda y: float(tmodel.forces(y, with_energy=True)[1])
+        energy = lambda y: tmodel.forces(y, with_energy=True)[1]
     else:
         jstep = lambda c, s: jmodel.step(c, s, telophase)
         chunk = lambda state, steps: tmodel.run_chunk(state, steps, telophase)
-        energy = lambda y: float(tmodel.forces(y, telophase, with_energy=True)[1])
+        energy = lambda y: tmodel.forces(y, telophase, with_energy=True)[1]
     want = _jax_steps(jstep, x, STEPS)
     m = dataclasses.replace(tmodel.config, sampling_interval=100, logging_interval=100)
     store, lines, timings = MemoryStore(), [], {}
